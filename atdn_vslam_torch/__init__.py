@@ -1,0 +1,21 @@
+"""ATDN vSLAM in PyTorch, for NVIDIA Hopper GPUs.
+
+A port of ``atdn_vslam_tpu`` (the JAX package, which stays the
+reference): the same models, layouts and runtime semantics, with every
+Pallas kernel of the ported paths replaced by a hand-written CUDA
+kernel (``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use).
+This package never imports JAX or the JAX package.
+
+Ported so far: the streaming odometry step (``slam.SlamRuntime`` in
+odometry mode) with RAFTGMA in test mode and ATDNVO.
+
+  geometry/   SE(3) pose math
+  models/     ATDNVO, the GMA flow network, builders from config
+  ops/        attention probabilities (kernel K1), correlation pyramid
+              and window lookup (kernel K2), bilinear sampling, convex
+              upsampling, padding, the kernel build
+  slam/       runtime state machine and keyframe store
+  convert.py  JAX variables -> state_dict
+"""
+
+__version__ = "0.1.0"

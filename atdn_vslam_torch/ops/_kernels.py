@@ -1,0 +1,128 @@
+"""Build and load the port's CUDA kernels (``atdn_vslam_torch/csrc``).
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.
+The build happens at first use, into ``build/kernels/`` at the root of
+the checkout; a library is named after the hash of its source and
+flags, so an edited source rebuilds and an unchanged one is reused.
+``build_all`` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on a machine without ``nvcc`` or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: the C entry points of each source: name -> argtypes
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "attention_probs": {
+        # q, k, m, l, out, b, n, n_kv, n_pad, d, scale, is_bf16, device, stream
+        "atdn_attention_probs": (_P,) * 5 + (_I,) * 5 + (_F, _I, _I, _P),
+    },
+    "corr_lookup": {
+        # vol0..3, coords, out, h0..3, w0..3, b, n, levels, radius, is_bf16, device, stream
+        "atdn_corr_lookup": (_P,) * 6 + (_I,) * 8 + (_I,) * 6 + (_P,),
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin and PATH): the port's "
+        "CUDA kernels cannot be built"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+class _Build:
+    """One ``nvcc`` run compiling ``csrc/<name>.cu`` to a temporary file,
+    moved into place when it succeeds (concurrent builds never load a
+    half-written library)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.out = _lib_path(name)
+        self.proc = None
+        if self.out.exists():
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.tmp = self.out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(self.tmp), str(_CSRC / f"{name}.cu")]
+        self.proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+
+    def wait(self) -> str:
+        """The compiler's output ("" when the library was up to date)."""
+        if self.proc is None:
+            return ""
+        log, _ = self.proc.communicate()
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{self.name}.cu:\n{log}")
+        os.replace(self.tmp, self.out)
+        (BUILD_DIR / f"{self.name}.ptxas.txt").write_text(log)
+        return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel source that has no up-to-date library,
+    one ``nvcc`` process per source, all started together. Returns the
+    compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel) for each source it built."""
+    with _lock:
+        builds = [_Build(name) for name in _SIGNATURES]
+        return {b.name: b.wait() for b in builds}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            build = _Build(name)
+            build.wait()
+            lib = ctypes.CDLL(str(build.out))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+    return _libs[name]
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point
+    (the launch was refused, or an argument was rejected)."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status}")

@@ -1,0 +1,6 @@
+"""SLAM runtime (odometry mode) and keyframe store."""
+
+from atdn_vslam_torch.slam.keyframes import KeyframeStore
+from atdn_vslam_torch.slam.runtime import SlamRuntime
+
+__all__ = ["KeyframeStore", "SlamRuntime"]
