@@ -30,8 +30,9 @@ class FlowNetConfig:
     #: bfloat16 convolutions on the GPU (the reference's autocast);
     #: the CPU always computes in float32
     mixed_precision: bool = True
-    #: read by the JAX package only; the port's attention always goes
-    #: through its CUDA kernel on the GPU
+    #: read by the JAX package only. The port always builds RAFTGMA with
+    #: use_pallas=None: attention by token count (K1 up to 8192 tokens,
+    #: K5 from 16384 on), and on the GPU never around its kernels
     use_pallas_attention: bool = True
     checkpoint_path: str = ""
 

@@ -33,14 +33,20 @@ def working_size(config: Config) -> tuple[int, int]:
     return -(-h // 8) * 8, -(-w // 8) * 8
 
 
-def build_flow_model(config: Config, device: str | torch.device = "cuda") -> RAFTGMA:
+def build_flow_model(
+    config: Config, device: str | torch.device = "cuda", use_pallas: bool | None = None
+) -> RAFTGMA:
+    """RAFTGMA in the config's widths and compute type. ``use_pallas``
+    is :class:`RAFTGMA`'s kernel switch; the runtime keeps the default
+    ``None`` (attention by token count), as the JAX factory does on a
+    TPU."""
     dev = resolve_device(device)
     c = config.flow
     dtype = flow_compute_dtype(config, dev)
     model = RAFTGMA(
         iters=c.iters, corr_levels=c.corr_levels, corr_radius=c.corr_radius,
         hidden_dim=c.hidden_dim, context_dim=c.context_dim, heads=c.num_heads,
-        dtype=dtype,
+        dtype=dtype, use_pallas=use_pallas,
     )
     model.to(dev)
     if dtype != torch.float32:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from atdn_vslam_torch.ops.attention import apply_attention_probs
+from atdn_vslam_torch.ops.attention import apply_attention_probs, attend
 
 
 class AttentionQK(nn.Module):
@@ -47,22 +47,38 @@ class AttentionQK(nn.Module):
 
 
 class Aggregate(nn.Module):
-    """out = fmap + gamma * proj(P @ to_v(fmap)), the learned
-    gamma-gated residual (ref: gma.py:79-115); gamma starts at 0."""
+    """out = fmap + gamma * proj(attention @ to_v(fmap)), the learned
+    gamma-gated residual (ref: gma.py:79-115); gamma starts at 0.
 
-    def __init__(self, dim: int = 128, heads: int = 1, dim_head: int = 128):
+    :param use_pallas: passed to :func:`attend` when the caller hands
+        over q and k (per-iteration attention)."""
+
+    def __init__(
+        self, dim: int = 128, heads: int = 1, dim_head: int = 128, use_pallas: bool | None = None
+    ):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.use_pallas = use_pallas
         inner = heads * dim_head
         self.to_v = nn.Conv2d(dim, inner, 1, bias=False)
         self.gamma = nn.Parameter(torch.zeros(1))
         self.project = nn.Conv2d(inner, dim, 1, bias=False) if dim != inner else None
 
-    def forward(self, probs: torch.Tensor, fmap: torch.Tensor) -> torch.Tensor:
-        """:param probs: (B*heads, H, W, N_pad) spatial probabilities."""
+    def forward(
+        self, attn: torch.Tensor | tuple[torch.Tensor, torch.Tensor], fmap: torch.Tensor
+    ) -> torch.Tensor:
+        """:param attn: the (B*heads, H, W, N_pad) spatial probabilities
+            materialised once per frame pair, or the pair (q, k) of
+            (B*heads, H*W, dim_head) tokens, q pre-scaled, to attend anew
+            (ref: gma.py:167-173).
+        """
         b, _, h, w = fmap.shape
         v = self.to_v(fmap).reshape(b * self.heads, self.dim_head, h * w).transpose(1, 2)
-        out = apply_attention_probs(probs, v)  # (b*heads, h, w, d)
+        if isinstance(attn, torch.Tensor):
+            out = apply_attention_probs(attn, v)  # (b*heads, h, w, d)
+        else:
+            q, k = attn
+            out = attend(q, k, v, scale=1.0, use_pallas=self.use_pallas)  # (b*heads, h*w, d)
         out = out.reshape(b, self.heads, h, w, self.dim_head).permute(0, 1, 4, 2, 3)
         out = out.reshape(b, self.heads * self.dim_head, h, w)
         if self.project is not None:

@@ -76,7 +76,12 @@ class GMAUpdateBlock(nn.Module):
     made once after the last iteration."""
 
     def __init__(
-        self, hidden_dim: int = 128, heads: int = 1, corr_levels: int = 4, corr_radius: int = 4
+        self,
+        hidden_dim: int = 128,
+        heads: int = 1,
+        corr_levels: int = 4,
+        corr_radius: int = 4,
+        use_pallas: bool | None = None,
     ):
         super().__init__()
         self.encoder = BasicMotionEncoder(corr_levels, corr_radius)
@@ -85,7 +90,7 @@ class GMAUpdateBlock(nn.Module):
         self.mask = nn.Sequential(
             nn.Conv2d(128, 256, 3, padding=1), nn.ReLU(inplace=True), nn.Conv2d(256, 64 * 9, 1)
         )
-        self.aggregator = Aggregate(dim=128, heads=heads, dim_head=128)
+        self.aggregator = Aggregate(dim=128, heads=heads, dim_head=128, use_pallas=use_pallas)
 
     def forward(
         self,
@@ -93,10 +98,12 @@ class GMAUpdateBlock(nn.Module):
         inp: torch.Tensor,
         corr: torch.Tensor,
         flow: torch.Tensor,
-        probs: torch.Tensor,
+        attn: torch.Tensor | tuple[torch.Tensor, torch.Tensor],
     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """:param attn: the materialised probabilities or the (q, k) pair,
+        passed through to :class:`Aggregate`."""
         motion = self.encoder(flow, corr)
-        motion_global = self.aggregator(probs, motion)
+        motion_global = self.aggregator(attn, motion)
         net = self.gru(net, torch.cat([inp, motion, motion_global], dim=1))
         return net, self.flow_head(net)
 

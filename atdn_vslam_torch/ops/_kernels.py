@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -38,6 +40,14 @@ _SIGNATURES = {
     "corr_lookup": {
         # vol0..3, coords, out, h0..3, w0..3, b, n, levels, radius, is_bf16, device, stream
         "atdn_corr_lookup": (_P,) * 6 + (_I,) * 8 + (_I,) * 6 + (_P,),
+    },
+    "flash_attend": {
+        # q, k, v, out, b, nq, nk, d, dv, scale, is_bf16, device, stream
+        "atdn_flash_attend": (_P,) * 4 + (_I,) * 5 + (_F, _I, _I, _P),
+    },
+    "corr_dot": {
+        # f1, f2, out, b, n, m, c, inv_sqrt_c, in_bf16, out_bf16, device, stream
+        "atdn_corr_dot": (_P,) * 3 + (_I,) * 4 + (_F, _I, _I, _I, _P),
     },
 }
 
@@ -126,3 +136,10 @@ def check(status: int, what: str) -> None:
     (the launch was refused, or an argument was rejected)."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned start (the kernels load 16 bytes
+    per thread)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()

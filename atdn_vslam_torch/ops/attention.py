@@ -1,6 +1,13 @@
-"""GMA attention: the probabilities softmax(q k^T), materialised once
-per frame pair in the spatial layout, and their per-iteration product
-with the values.
+"""GMA attention, on the JAX package's schedule by token count N
+(``atdn_vslam_tpu/ops/attention.py:198,206``, ``network.py:349-364``):
+
+- N <= :data:`_MATERIALIZE_MAX_TOKENS`: the probabilities softmax(q k^T)
+  are materialised once per frame pair in the spatial layout (kernel K1)
+  and multiplied with the new values in every iteration
+  (:func:`apply_attention_probs`);
+- above it, every iteration attends anew (:func:`attend`): through the
+  online-softmax kernel K5 at N >= :data:`_FLASH_MIN_TOKENS`, through
+  :func:`attend_reference` in between.
 
 Kernel K1 (``csrc/attention_probs.cu``) replaces the TPU kernel
 ``atdn_vslam_tpu/ops/attention.py:flash_probs_spatial``. Its contract
@@ -9,9 +16,9 @@ in q's type, N_pad = N rounded up to a multiple of 128, the pad columns
 exact zeros, so the P @ V read contracts them against zero-extended
 values and never slices the large matrix.
 
-The JAX package switches to per-iteration flash attention (its kernel
-K5) above 8192 tokens; the port materialises the probabilities at every
-size until K5 is ported (ROADMAP Queue 2).
+Kernel K5 (``csrc/flash_attend.cu``) replaces the TPU kernel
+``atdn_vslam_tpu/ops/attention.py:flash_attend``: out = softmax(scale
+q k^T) v in one pass over the keys, the scores never stored.
 """
 
 from __future__ import annotations
@@ -22,15 +29,16 @@ import torch.nn.functional as F
 from atdn_vslam_torch.ops import _kernels
 
 
+#: at most this many tokens materialise the probabilities once per frame
+#: pair (the JAX package's constant: a 128 MB bf16 matrix at 8192)
+_MATERIALIZE_MAX_TOKENS = 8192
+#: at least this many tokens attend through the flash kernel K5 when
+#: the caller leaves the choice to :func:`attend`
+_FLASH_MIN_TOKENS = 16384
+
+
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
-
-
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned start (the kernels load 16 bytes
-    per thread)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def attention_probs_spatial_plain(
@@ -75,7 +83,7 @@ def attention_probs_spatial(
     if d % 16 or d > 256:
         raise ValueError(f"head width {d} must be a multiple of 16 and at most 256")
     scale = d**-0.5 if scale is None else scale
-    q, k = _aligned(q), _aligned(k)
+    q, k = _kernels.aligned(q), _kernels.aligned(k)
     n_pad = _round_up(n_kv, 128)
     out = torch.empty((b, n, n_pad), dtype=q.dtype, device=q.device)
     m = torch.empty((b, n), dtype=torch.float32, device=q.device)
@@ -110,3 +118,103 @@ def apply_attention_probs(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         out = torch.matmul(probs.reshape(b, h * w, n).to(v.dtype), v)
         return out.reshape(b, h, w, -1)
     return torch.matmul(probs.to(v.dtype), v)
+
+
+def attend_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+) -> torch.Tensor:
+    """out = softmax(scale * q k^T) v, the JAX package's
+    ``attend_reference``: float32 scores, softmax, the probabilities cast
+    to v's type, the product with v accumulated in float32.
+
+    :param q: (B, Nq, D); k: (B, Nk, D); v: (B, Nk, Dv).
+    :return: (B, Nq, Dv) in v's type.
+    """
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(v.dtype)
+
+
+def flash_attend_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+) -> torch.Tensor:
+    """Plain PyTorch version of K5, the online kernel's arithmetic with
+    the whole key axis as one tile: float32 scores, exp(s - row max)
+    cast to v's type, its product with v accumulated in float32, divided
+    by the float32 row sum. The (B, Nq, Nk) float32 scores are
+    materialised."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.matmul(e.to(v.dtype).float(), v.float()) / e.sum(dim=-1, keepdim=True)
+    return out.to(v.dtype)
+
+
+def flash_attend(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+) -> torch.Tensor:
+    """K5: softmax(scale * q k^T) v, online, the scores never stored.
+
+    On a CPU tensor this is :func:`flash_attend_plain`; on a CUDA tensor
+    it launches the CUDA kernel (q, k and v all bf16 or all float32, D
+    and Dv multiples of 16 up to 128, float32 accumulation) and counts
+    one launch, or raises.
+
+    :param q: (B, Nq, D); k: (B, Nk, D); v: (B, Nk, Dv).
+    :return: (B, Nq, Dv) in v's type.
+    """
+    if q.device.type == "cpu":
+        return flash_attend_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attend: no kernel for {q.device}")
+    b, nq, d = q.shape
+    nk, dv = v.shape[1], v.shape[2]
+    if k.shape != (b, nk, d) or v.shape[0] != b:
+        raise ValueError(
+            f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} do not match"
+        )
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k and v lie on {q.device}, {k.device}, {v.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"flash_attend takes bf16 or float32, got {q.dtype}/{k.dtype}/{v.dtype}")
+    for name, width in (("head width", d), ("value width", dv)):
+        if width % 16 or not 16 <= width <= 128:
+            raise ValueError(f"{name} {width} must be a multiple of 16 in [16, 128]")
+    if nq < 1 or nk < 1:
+        raise ValueError(f"flash_attend needs at least one query and one key, got {nq}, {nk}")
+    scale = d**-0.5 if scale is None else scale
+    q, k, v = _kernels.aligned(q), _kernels.aligned(k), _kernels.aligned(v)
+    out = torch.empty((b, nq, dv), dtype=v.dtype, device=q.device)
+    status = _kernels.library("flash_attend").atdn_flash_attend(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk, d, dv,
+        float(scale), int(q.dtype == torch.bfloat16), q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _kernels.check(status, "flash_attend kernel")
+    flash_attend.launches += 1
+    return out
+
+
+flash_attend.launches = 0
+
+
+def attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float | None = None,
+    use_pallas: bool | None = None,
+) -> torch.Tensor:
+    """softmax(scale * q k^T) v, the JAX package's ``attend`` dispatch.
+
+    ``use_pallas=None`` takes kernel K5 (:func:`flash_attend`) at
+    ``_FLASH_MIN_TOKENS`` query tokens or more and
+    :func:`attend_reference` below; ``True`` always takes K5 and
+    ``False`` never does. On CPU tensors the K5 wrapper is its plain
+    version, so the CPU follows the same token-count schedule."""
+    if use_pallas is None:
+        use_pallas = q.shape[-2] >= _FLASH_MIN_TOKENS
+    if use_pallas:
+        return flash_attend(q, k, v, scale)
+    return attend_reference(q, k, v, scale)

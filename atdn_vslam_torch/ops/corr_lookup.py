@@ -4,6 +4,10 @@
 Kernel K2 (``csrc/corr_lookup.cu``) replaces the TPU kernel
 ``atdn_vslam_tpu/ops/corr_lookup_pallas.py:lookup_level_pallas`` and
 carries the port's per-iteration lookup, all levels in one launch.
+Kernel K3 (``csrc/corr_dot.cu``) replaces the TPU kernel
+``atdn_vslam_tpu/ops/corr_lookup.py:corr_dot_rowmajor`` and builds the
+pyramid's levels when the flow net asks for its kernels
+(``use_pallas=True``).
 
 Layouts: level ``l`` of the pyramid is (B, N1, H_l, W_l) (the JAX
 package keeps a trailing unit axis); the lookup returns (B, H1, W1,
@@ -20,35 +24,103 @@ import torch
 from atdn_vslam_torch.ops import _kernels
 
 
+def corr_dot_rowmajor_plain(
+    f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, out_dtype: torch.dtype = torch.bfloat16
+) -> torch.Tensor:
+    """Plain PyTorch version of K3: ``inv_sqrt_c * f1 @ f2^T`` summed and
+    scaled in float32, cast once to ``out_dtype``.
+
+    :param f1: (B, N, C); f2: (B, M, C).
+    :return: (B, N, M) row-major volume.
+    """
+    out = torch.matmul(f1.float(), f2.float().transpose(1, 2)) * inv_sqrt_c
+    return out.to(out_dtype)
+
+
+def corr_dot_rowmajor(
+    f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, out_dtype: torch.dtype = torch.bfloat16
+) -> torch.Tensor:
+    """K3: one level of the correlation volume, ``inv_sqrt_c * f1 @
+    f2^T`` with the scale applied to the float32 sum and one cast.
+
+    On CPU tensors this is :func:`corr_dot_rowmajor_plain`; on CUDA
+    tensors it launches the CUDA kernel (f1 and f2 both bf16 or both
+    float32, C a multiple of 8; bf16 or float32 out) and counts one
+    launch, or raises.
+    """
+    if f1.device.type == "cpu":
+        return corr_dot_rowmajor_plain(f1, f2, inv_sqrt_c, out_dtype)
+    if f1.device.type != "cuda":
+        raise RuntimeError(f"corr_dot_rowmajor: no kernel for {f1.device}")
+    b, n, c = f1.shape
+    m = f2.shape[1]
+    if f2.ndim != 3 or f2.shape[0] != b or f2.shape[2] != c or f2.device != f1.device:
+        raise ValueError(f"f2 {tuple(f2.shape)} on {f2.device} does not match f1 {tuple(f1.shape)}")
+    if f1.dtype not in (torch.bfloat16, torch.float32) or f2.dtype != f1.dtype:
+        raise TypeError(f"corr_dot_rowmajor takes bf16 or float32 features, got {f1.dtype}/{f2.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"corr_dot_rowmajor writes bf16 or float32, not {out_dtype}")
+    if c % 8 or n < 1 or m < 1:
+        raise ValueError(f"channels {c} must be a multiple of 8, rows {n}, {m} at least 1")
+    # the level-0 f2 arrives as an NHWC view of an NCHW conv output: copied here
+    f1, f2 = _kernels.aligned(f1), _kernels.aligned(f2)
+    out = torch.empty((b, n, m), dtype=out_dtype, device=f1.device)
+    status = _kernels.library("corr_dot").atdn_corr_dot(
+        f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, n, m, c, float(inv_sqrt_c),
+        int(f1.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        f1.device.index or 0, torch.cuda.current_stream(f1.device).cuda_stream,
+    )
+    _kernels.check(status, "corr_dot kernel")
+    corr_dot_rowmajor.launches += 1
+    return out
+
+
+corr_dot_rowmajor.launches = 0
+
+
 def build_corr_pyramid(
     fmap1: torch.Tensor,
     fmap2: torch.Tensor,
     num_levels: int = 4,
     dtype: torch.dtype | None = None,
+    use_pallas: bool | None = None,
 ) -> list[torch.Tensor]:
     """All-pairs correlation at ``num_levels`` scales.
 
     Correlation is linear in fmap2, so the reference's average pooling
     of the volume equals pooling the *features* first
     (avgpool(f1 . f2^T) == f1 . avgpool(f2)^T): each level is one
-    ``torch.matmul`` against the 2^l-pooled feature map. The product
-    accumulates in float32 and is stored in ``dtype`` (default: the
-    features' type). f1 is scaled by 1/sqrt(C) before the product,
-    which is exact for C = 256.
+    product against the 2^l-pooled feature map, accumulated in float32
+    and stored in ``dtype`` (default: the features' type).
+
+    ``use_pallas=True`` builds every level with kernel K3
+    (:func:`corr_dot_rowmajor`), which scales the float32 sum by
+    1/sqrt(C) before its one cast, as the JAX package's Pallas path
+    does. ``None`` and ``False`` take the JAX package's default path, a
+    plain matrix product outside any kernel: ``torch.matmul`` in the
+    features' type with f1 scaled by 1/sqrt(C) first (exact for C = 256),
+    then cast to ``dtype``.
 
     :param fmap1: (B, H1, W1, C); fmap2: (B, H2, W2, C).
-    :return: list of (B, H1*W1, H_l, W_l) volumes.
+    :return: list of (B, H1*W1, H_l, W_l) volumes, the layout the lookup
+        (kernel K2) reads.
     """
     b, h1, w1, c = fmap1.shape
     h2, w2 = fmap2.shape[1:3]
     dtype = dtype or fmap1.dtype
-    f1 = fmap1.reshape(b, h1 * w1, c) * (1.0 / float(c) ** 0.5)
+    inv_sqrt_c = 1.0 / float(c) ** 0.5
+    f1 = fmap1.reshape(b, h1 * w1, c)
+    if not use_pallas:
+        f1 = f1 * inv_sqrt_c
     pyramid = []
     f2l, hl, wl = fmap2, h2, w2
     for level in range(num_levels):
-        f2t = f2l.reshape(b, hl * wl, c).transpose(1, 2)
-        corr = torch.matmul(f1, f2t.to(f1.dtype))
-        pyramid.append(corr.to(dtype).reshape(b, h1 * w1, hl, wl))
+        f2 = f2l.reshape(b, hl * wl, c)
+        if use_pallas:
+            corr = corr_dot_rowmajor(f1, f2, inv_sqrt_c, dtype)
+        else:
+            corr = torch.matmul(f1, f2.transpose(1, 2).to(f1.dtype)).to(dtype)
+        pyramid.append(corr.reshape(b, h1 * w1, hl, wl))
         if level < num_levels - 1:
             h2_, w2_ = hl // 2, wl // 2
             f2l = f2l[:, : h2_ * 2, : w2_ * 2].reshape(b, h2_, 2, w2_, 2, c)

@@ -9,20 +9,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
      versions;
   2. build: compiles every CUDA kernel of the port with ``nvcc``;
   3. kernels: each kernel against its plain PyTorch version at the
-     KITTI main-path shapes (376x1232 -> 47x154 tokens), with its time,
-     the plain version's, one library call's and the least time the
-     card could take (the bound);
+     shapes its path gives it (K1, K2: KITTI 376x1232 -> 47x154 = 7238
+     tokens; K5, K3: 2x KITTI 752x2464 -> 94x308 = 28952 tokens), with
+     its time, the plain version's, one library call's and the least
+     time the card could take (the bound);
   4. agreement: the streaming runtime on the GPU (float32, kernels) and
      on the CPU (float32, plain versions) give the same poses on a
-     small input;
+     small input, and ``RAFTGMA(use_pallas=True)`` (K3, K5) the same
+     flows;
   5. slice: the streaming odometry step through ``SlamRuntime`` at
      376x1232, 12 GMA iterations, bf16 flow compute, seeded random
      weights with a non-zero GMA gamma, with the kernels' launch counts
-     read around the run;
-  6. the ``kernels`` line, the card, and last the ``ok`` line.
+     read around the run (K1 once and K2 12 times per frame pair);
+  6. slice_2x: the same at 752x2464, where the attention runs through
+     K5 in every iteration (K5 and K2 12 times per pair, no K1);
+  7. forced_streaming: the flow net built with ``use_pallas=True`` on
+     the same weights and frames at 752x2464 (K3 4 times and K5 12
+     times per pair), its flows against slice_2x's default path;
+  8. the ``kernels`` line, the card, and last the ``ok`` line.
 
 ``--profile N`` adds N more streaming steps under ``torch.profiler`` to
-the slice's line: device time by kernel and the device's idle share.
+each slice's line: device time by kernel and the device's idle share.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -47,8 +54,19 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 FULL_HW = (376, 1232)
+HW_2X = (752, 2464)  # 2x KITTI: 94 x 308 = 28952 attention tokens
 K1_TOL = {"rtol": 2.0**-7, "atol": 1e-8}  # one bf16 ulp: both round a float32 softmax
 K2_TOL = {"rtol": 1e-5, "atol": 1e-5}  # both lerp the same bf16 taps in float32
+# bf16: both round exp(s - max) to bf16 (the kernel against its running
+# max) and the float32 result once; outputs are ~0.01-1
+K5_TOL = {"rtol": 2.0**-7, "atol": 2.0**-8}
+K5_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}  # float32 on both sides, summation order
+K3_TOL = {"rtol": 2.0**-7, "atol": 1e-5}  # both round one float32 sum: one bf16 ulp
+FLOW_F32_TOL = 1e-3  # px, float32 flow on the GPU (TF32 off) against the CPU
+# px at 1/8 resolution: forced and default 2x paths differ only where
+# the float32 volume sums, taken in another order, round to another bf16
+# (0.0034-0.0044 px measured on flows of ~0.9 px, seeded weights)
+FLOW_FORCED_TOL = 0.02
 
 
 def emit(phase: str, **fields) -> None:
@@ -224,6 +242,83 @@ def k2_corr_lookup(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=1, r
     }
 
 
+def k5_flash_attend(device, n=94 * 308, d=128, seed=5) -> dict:
+    from atdn_vslam_torch.ops.attention import flash_attend, flash_attend_plain
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    # GMA's q arrives pre-scaled by d**-0.5; scores come out with std ~1
+    q = (torch.randn((1, n, d), generator=g, device=device) * d**-0.5).to(torch.bfloat16)
+    k = torch.randn((1, n, d), generator=g, device=device).to(torch.bfloat16)
+    v = torch.randn((1, n, d), generator=g, device=device).to(torch.bfloat16)
+    got = flash_attend(q, k, v, 1.0)
+    max_err = check_close("flash_attend", got, flash_attend_plain(q, k, v, 1.0), **K5_TOL)
+    # rectangular and ragged: Nq != Nk, neither a multiple of a tile
+    nq, nk = 5003, n - 37
+    rect = check_close(
+        "flash_attend (rectangular)", flash_attend(q[:, :nq], k[:, :nk], v[:, :nk], 1.0),
+        flash_attend_plain(q[:, :nq], k[:, :nk], v[:, :nk], 1.0), **K5_TOL,
+    )
+    qf, kf, vf = (x[:, :7238].float() for x in (q, k, v))
+    f32 = check_close(
+        "flash_attend (float32)", flash_attend(qf, kf, vf, 1.0),
+        flash_attend_plain(qf, kf, vf, 1.0), **K5_F32_TOL,
+    )
+    bytes_moved = 4 * q.numel() * q.element_size()  # q, k, v read, out written
+    bound_ms, bound_by = bound(bytes_moved, 2.0 * n * n * (d + d), torch.bfloat16)
+    return {
+        "name": "flash_attend",
+        "route": "cuda",
+        "source": "atdn_vslam_torch/csrc/flash_attend.cu",
+        "replaces": "atdn_vslam_tpu/ops/attention.py:125",
+        "shape": [1, n, d], "dtype": "torch.bfloat16", "tolerance": K5_TOL,
+        "max_abs_err": max_err,
+        "rectangular": {"nq": nq, "nk": nk, "max_abs_err": rect},
+        "float32": {"n": 7238, "max_abs_err": f32, "tolerance": K5_F32_TOL},
+        "ms": time_ms(lambda: flash_attend(q, k, v, 1.0), device),
+        "plain_ms": time_ms(lambda: flash_attend_plain(q, k, v, 1.0), device, reps=5),
+        # the yardstick only, the port never calls it; (B, heads, N, D)
+        # views, the layout its fused kernels take
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=1.0),
+            device,
+        ),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def k3_corr_dot(device, n=94 * 308, c=256, seed=6) -> dict:
+    from atdn_vslam_torch.ops.corr_lookup import corr_dot_rowmajor, corr_dot_rowmajor_plain
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    f1 = torch.randn((1, n, c), generator=g, device=device).to(torch.bfloat16)
+    f2 = torch.randn((1, n, c), generator=g, device=device).to(torch.bfloat16)
+    inv = c**-0.5
+    got = corr_dot_rowmajor(f1, f2, inv, torch.bfloat16)
+    max_err = check_close("corr_dot", got, corr_dot_rowmajor_plain(f1, f2, inv, torch.bfloat16), **K3_TOL)
+    del got
+    ragged = {}
+    for m in (1771, 418):  # 2x KITTI levels 3 and 2: rows not 16-byte aligned
+        ragged[m] = check_close(
+            f"corr_dot (M = {m})", corr_dot_rowmajor(f1, f2[:, :m], inv, torch.bfloat16),
+            corr_dot_rowmajor_plain(f1, f2[:, :m], inv, torch.bfloat16), **K3_TOL,
+        )
+    f1s = f1 * inv  # exact: 1/16
+    bytes_moved = 2 * f1.numel() * 2 + n * n * 2
+    bound_ms, bound_by = bound(bytes_moved, 2.0 * n * n * c, torch.bfloat16)
+    return {
+        "name": "corr_dot",
+        "route": "cuda",
+        "source": "atdn_vslam_torch/csrc/corr_dot.cu",
+        "replaces": "atdn_vslam_tpu/ops/corr_lookup.py:44",
+        "shape": [1, n, n, c], "dtype": "torch.bfloat16", "tolerance": K3_TOL,
+        "max_abs_err": max_err, "ragged_max_abs_err": ragged,
+        "ms": time_ms(lambda: corr_dot_rowmajor(f1, f2, inv, torch.bfloat16), device),
+        "plain_ms": time_ms(lambda: corr_dot_rowmajor_plain(f1, f2, inv, torch.bfloat16), device, reps=5),
+        "library_ms": time_ms(lambda: torch.matmul(f1s, f2.mT), device),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
 def seeded_weights(cfg, seed: int, gamma: float = 0.5):
     """Random flow and odometry weights from ``seed`` (CPU float32
     state dicts), with GMA's gamma set non-zero so the attention path
@@ -305,16 +400,44 @@ def profile_frames(rt, frames, top: int = 25) -> dict:
     }
 
 
-def agreement(device, keyframes_path: str, hw=(96, 192), iters=2, frames=4) -> dict:
-    """Poses of the runtime on ``device`` (float32) against the CPU's
-    plain versions, same weights and frames."""
+def _counters() -> dict:
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from atdn_vslam_torch.ops.attention import attention_probs_spatial, flash_attend
+    from atdn_vslam_torch.ops.corr_lookup import corr_dot_rowmajor, lookup_corr_pyramid
+
+    return {
+        "attention_probs": attention_probs_spatial, "corr_lookup": lookup_corr_pyramid,
+        "corr_dot": corr_dot_rowmajor, "flash_attend": flash_attend,
+    }
+
+
+def reset_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def flow_config(keyframes_path: str, hw, iters: int, bf16: bool):
     from atdn_vslam_torch.config import Config, FlowNetConfig, SlamConfig
 
-    cfg = Config(
+    return Config(
         keyframes_path=keyframes_path,
-        flow=FlowNetConfig(iters=iters, mixed_precision=False),
+        flow=FlowNetConfig(iters=iters, mixed_precision=bf16),
         slam=SlamConfig(image_height=hw[0], image_width=hw[1]),
     )
+
+
+def agreement(device, keyframes_path: str, hw=(96, 192), iters=2, frames=4) -> dict:
+    """Poses of the runtime on ``device`` (float32) against the CPU's
+    plain versions, same weights and frames; then the flow of
+    ``RAFTGMA(use_pallas=True)`` (K3 and K5 on the GPU) against the
+    CPU's, on the first pair."""
+    from atdn_vslam_torch.models.factory import build_flow_model
+
+    cfg = flow_config(keyframes_path, hw, iters, bf16=False)
     weights = seeded_weights(cfg, seed=3)
     clip = synthetic_frames(frames, hw, seed=4)
     got, _ = run_stream(new_runtime(cfg, weights, device), clip)
@@ -323,44 +446,67 @@ def agreement(device, keyframes_path: str, hw=(96, 192), iters=2, frames=4) -> d
     tol = 1e-4  # float32 on both sides, TF32 off; summation order differs
     if not np.isfinite(got).all() or err > tol:
         raise AssertionError(f"agreement: max pose difference {err} > {tol}")
-    return {"hw": list(hw), "iters": iters, "frames": frames, "max_abs_pose_diff": err, "tol": tol}
+
+    flows, launches = {}, None
+    for dev in (device, torch.device("cpu")):
+        model = build_flow_model(cfg, dev, use_pallas=True)
+        model.load_state_dict(weights[0])
+        im1, im2 = (torch.from_numpy(f).to(dev).float()[None] for f in clip[:2])
+        reset_launches()
+        with torch.inference_mode():
+            flows[dev.type] = [f.cpu() for f in model(im1, im2)]
+        if dev.type == "cuda":
+            launches = read_launches()
+            want = {"attention_probs": 0, "corr_lookup": iters, "corr_dot": 4, "flash_attend": iters}
+            if launches != want:
+                raise AssertionError(f"agreement: use_pallas=True launched {launches}, not {want}")
+    flow_err = max(
+        float((a - b).abs().max()) for a, b in zip(flows[device.type], flows["cpu"])
+    )
+    if not all(bool(f.isfinite().all()) for f in flows[device.type]) or flow_err > FLOW_F32_TOL:
+        raise AssertionError(f"agreement: use_pallas=True flow difference {flow_err} > {FLOW_F32_TOL}")
+    return {
+        "hw": list(hw), "iters": iters, "frames": frames, "max_abs_pose_diff": err, "tol": tol,
+        "use_pallas_true": {"launches": launches, "max_abs_flow_diff_px": flow_err,
+                            "tol_px": FLOW_F32_TOL},
+    }
+
+
+def expected_launches(hw, iters: int, pairs: int) -> dict:
+    """The default path's launches: K2 every iteration; K1 once per pair
+    up to 8192 tokens, K5 every iteration from 16384 on; no K3."""
+    n = (hw[0] // 8) * (hw[1] // 8)
+    return {
+        "attention_probs": pairs if n <= 8192 else 0,
+        "corr_lookup": iters * pairs,
+        "corr_dot": 0,
+        "flash_attend": iters * pairs if n >= 16384 else 0,
+    }
 
 
 def stream_slice(
     device, keyframes_path: str, hw=FULL_HW, iters=12, frames=20, profile: int = 0
 ) -> dict:
-    from atdn_vslam_torch.config import Config, FlowNetConfig, SlamConfig
-    from atdn_vslam_torch.ops.attention import attention_probs_spatial
-    from atdn_vslam_torch.ops.corr_lookup import lookup_corr_pyramid
-
-    cfg = Config(
-        keyframes_path=keyframes_path,
-        flow=FlowNetConfig(iters=iters, mixed_precision=True),
-        slam=SlamConfig(image_height=hw[0], image_width=hw[1]),
-    )
+    cfg = flow_config(keyframes_path, hw, iters, bf16=True)
     weights = seeded_weights(cfg, seed=0)
     clip = synthetic_frames(frames + profile, hw, seed=1)
     rt = new_runtime(cfg, weights, device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    attention_probs_spatial.launches = 0
-    lookup_corr_pyramid.launches = 0
+    reset_launches()
     poses, times = run_stream(rt, clip[:frames])
-    launches = {
-        "attention_probs": attention_probs_spatial.launches,
-        "corr_lookup": lookup_corr_pyramid.launches,
-    }
+    launches = read_launches()
     pairs = frames - 1
     if poses.shape != (frames, 4, 4) or not np.isfinite(poses).all():
         raise AssertionError("slice: poses are not finite 4x4 matrices")
-    if device.type == "cuda" and launches != {
-        "attention_probs": pairs, "corr_lookup": iters * pairs,
-    }:
-        raise AssertionError(f"slice: launches {launches} for {pairs} frame pairs")
+    want = expected_launches(hw, iters, pairs)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"slice {hw}: launches {launches} for {pairs} frame pairs, not {want}")
     steady = times[min(3, frames - 1):]  # the first pairs include cuDNN's autotuning
     ms = float(np.mean(steady))
     out = {
-        "hw": list(hw), "iters": iters, "frames": frames, "dtype": "bfloat16",
+        "hw": list(hw), "tokens": (hw[0] // 8) * (hw[1] // 8), "iters": iters,
+        "frames": frames, "dtype": "bfloat16",
         "launches": launches, "ms_per_frame": ms, "frames_per_s": 1e3 / ms,
         "ms_per_frame_median": float(np.median(steady)),
         "ms_per_frame_p90": float(np.percentile(steady, 90)),
@@ -374,11 +520,45 @@ def stream_slice(
     return out
 
 
+def forced_streaming(device, hw=HW_2X, iters=12, pairs=3) -> dict:
+    """The flow net with ``use_pallas=True`` (K3 builds the pyramid, K5
+    attends in every iteration) against the default build, on the
+    weights (seed 0) and frames (seed 1) of the slices."""
+    from atdn_vslam_torch.models.factory import build_flow_model
+
+    cfg = flow_config(os.devnull, hw, iters, bf16=True)
+    flow_sd, _ = seeded_weights(cfg, seed=0)
+    models = {}
+    for use_pallas in (True, None):
+        models[use_pallas] = build_flow_model(cfg, device, use_pallas=use_pallas)
+        models[use_pallas].load_state_dict(flow_sd)
+    ims = [torch.from_numpy(f).to(device).float()[None] for f in synthetic_frames(pairs + 1, hw, seed=1)]
+    flows, launches = {}, None
+    with torch.inference_mode():
+        for use_pallas, model in models.items():
+            reset_launches()
+            flows[use_pallas] = [model(ims[i], ims[i + 1])[0] for i in range(pairs)]
+            if use_pallas:
+                launches = read_launches()
+    want = {"attention_probs": 0, "corr_lookup": iters * pairs,
+            "corr_dot": 4 * pairs, "flash_attend": iters * pairs}
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"forced_streaming: launches {launches} for {pairs} pairs, not {want}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(flows[True], flows[None]))
+    scale = max(float(f.abs().max()) for f in flows[None])
+    if not all(bool(f.isfinite().all()) for f in flows[True]) or diff > FLOW_FORCED_TOL:
+        raise AssertionError(f"forced_streaming: low-res flows differ by {diff} > {FLOW_FORCED_TOL}")
+    return {
+        "hw": list(hw), "iters": iters, "pairs": pairs, "launches": launches,
+        "max_abs_flow_low_diff_px": diff, "max_abs_flow_low_px": scale, "tol_px": FLOW_FORCED_TOL,
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None, help="also write every phase's result to this JSON file")
     p.add_argument("--profile", type=int, default=0, metavar="N",
-                   help="after the slice, profile N more streaming steps with torch.profiler")
+                   help="after each slice, profile N more streaming steps with torch.profiler")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -418,6 +598,8 @@ def main(argv=None) -> int:
     emit("build", **results["build"])
 
     kernels = [k1_attention_probs(device), k2_corr_lookup(device)]
+    kernels += [k5_flash_attend(device), k3_corr_dot(device)]
+    torch.cuda.empty_cache()
     for k in kernels:
         emit("kernel", card=card, **k)
 
@@ -429,9 +611,19 @@ def main(argv=None) -> int:
         device, os.path.join(work, "keyframes"), profile=args.profile
     )
     emit("slice", card=card, **results["slice"])
+    results["slice_2x"] = stream_slice(
+        device, os.path.join(work, "keyframes_2x"), hw=HW_2X, frames=10, profile=args.profile
+    )
+    emit("slice_2x", card=card, **results["slice_2x"])
+    results["forced_streaming"] = forced_streaming(device)
+    emit("forced_streaming", card=card, **results["forced_streaming"])
 
+    # each kernel's launches from the run of the path that drives it
+    driver = {"attention_probs": "slice", "corr_lookup": "slice",
+              "flash_attend": "slice_2x", "corr_dot": "forced_streaming"}
     for k in kernels:
-        k["launches"] = results["slice"]["launches"][k["name"]]
+        k["launches_from"] = driver[k["name"]]
+        k["launches"] = results[driver[k["name"]]]["launches"][k["name"]]
     results["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

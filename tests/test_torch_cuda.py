@@ -10,12 +10,17 @@ import numpy as np
 import pytest
 import torch
 
+from atdn_vslam_torch.models.flow.network import RAFTGMA
 from atdn_vslam_torch.ops.attention import (
     attention_probs_spatial,
     attention_probs_spatial_plain,
+    flash_attend,
+    flash_attend_plain,
 )
 from atdn_vslam_torch.ops.corr_lookup import (
     build_corr_pyramid,
+    corr_dot_rowmajor,
+    corr_dot_rowmajor_plain,
     lookup_corr_pyramid,
     lookup_corr_pyramid_plain,
 )
@@ -83,3 +88,102 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     pyr = [torch.zeros((1, 6, 2, 3), device=cuda)]
     with pytest.raises(ValueError):
         lookup_corr_pyramid(pyr, torch.zeros((1, 2, 3, 2), device=cuda), radius=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "nq,nk,d,dv", [(64, 64, 16, 16), (100, 300, 32, 16), (300, 100, 128, 128), (7, 1000, 64, 128)]
+)
+def test_flash_attend_kernel(cuda, dtype, nq, nk, d, dv):
+    """Nq != Nk and Nk not a multiple of the key tile (64 bf16, 32 f32).
+    f32: the same softmax up to summation order (1e-5); bf16: both round
+    exp(s - max) to bf16, the kernel against its running max, so the
+    weights differ by an ulp (atol 2^-8 on outputs of size ~0.1-1, rtol
+    2^-7). Launches are counted; no row past Nq is written."""
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.normal(size=(2, nq, d)).astype(np.float32) * d**-0.5)
+    k = torch.from_numpy(rng.normal(size=(2, nk, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(2, nk, dv)).astype(np.float32))
+    q, k, v = q.to(cuda, dtype), k.to(cuda, dtype), v.to(cuda, dtype)
+    before = flash_attend.launches
+    got = flash_attend(q, k, v, 1.0)
+    torch.cuda.synchronize()
+    assert flash_attend.launches == before + 1
+    ref = flash_attend_plain(q, k, v, 1.0)
+    assert got.shape == ref.shape == (2, nq, dv) and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=2.0**-8)
+
+
+def test_flash_attend_kernel_takes_strided_values(cuda):
+    """v as the transposed view the aggregator hands over."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(1, 70, 32)).astype(np.float32)).to(cuda)
+    vt = torch.from_numpy(rng.normal(size=(1, 32, 70)).astype(np.float32)).to(cuda)
+    got = flash_attend(q, q, vt.transpose(1, 2))
+    torch.testing.assert_close(got, flash_attend_plain(q, q, vt.transpose(1, 2)), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+])
+@pytest.mark.parametrize("n,m,c", [(300, 418, 256), (129, 1771, 64), (5, 8, 8), (200, 264, 40)])
+def test_corr_dot_kernel(cuda, in_dtype, out_dtype, n, m, c):
+    """Ragged N, the ragged widths M = 418 and 1771 of 2x KITTI's levels
+    2 and 3, M a multiple of 8 (the 16-byte store path), C not a
+    multiple of the 32-channel stage. Both sum exact products in float32
+    and scale before one cast: f32 out 1e-5; bf16 out one ulp (2^-7)
+    where the float32 sums round to either side."""
+    rng = np.random.default_rng(4)
+    f1 = torch.from_numpy(rng.normal(size=(2, n, c)).astype(np.float32)).to(cuda, in_dtype)
+    f2 = torch.from_numpy(rng.normal(size=(2, m, c)).astype(np.float32)).to(cuda, in_dtype)
+    before = corr_dot_rowmajor.launches
+    got = corr_dot_rowmajor(f1, f2, c**-0.5, out_dtype)
+    torch.cuda.synchronize()
+    assert corr_dot_rowmajor.launches == before + 1
+    ref = corr_dot_rowmajor_plain(f1, f2, c**-0.5, out_dtype)
+    assert got.shape == (2, n, m) and got.dtype == out_dtype
+    rtol = 1e-5 if out_dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-5)
+
+
+def test_corr_pyramid_through_the_kernel(cuda):
+    """build_corr_pyramid(use_pallas=True) launches K3 once per level and
+    gives the levels of the default path (both round a float32 sum once)."""
+    rng = np.random.default_rng(5)
+    f1 = torch.from_numpy(rng.normal(size=(1, 9, 13, 256)).astype(np.float32)).to(cuda)
+    f2 = torch.from_numpy(rng.normal(size=(1, 9, 13, 256)).astype(np.float32)).to(cuda)
+    before = corr_dot_rowmajor.launches
+    got = build_corr_pyramid(f1, f2, 4, use_pallas=True)
+    torch.cuda.synchronize()
+    assert corr_dot_rowmajor.launches == before + 4
+    for g, r in zip(got, build_corr_pyramid(f1, f2, 4)):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+
+
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 6, 24), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attend(q, q, q)  # head width 24
+    q = torch.zeros((1, 6, 32), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attend(q, q, q.half())
+    with pytest.raises(ValueError):
+        flash_attend(q, q[:, :5], q)
+    with pytest.raises(ValueError):
+        corr_dot_rowmajor(torch.zeros((1, 4, 12), device=cuda), torch.zeros((1, 4, 12), device=cuda), 1.0)
+    with pytest.raises(TypeError):
+        corr_dot_rowmajor(q, q.bfloat16(), 1.0)
+
+
+def test_raftgma_refuses_use_pallas_false_on_cuda(cuda):
+    """use_pallas=False asks for no kernel: the port raises on the GPU."""
+    model = RAFTGMA(iters=1, use_pallas=False).to(cuda).eval()
+    im = torch.zeros((1, 64, 96, 3), device=cuda)
+    with pytest.raises(ValueError, match="use_pallas=False"):
+        with torch.no_grad():
+            model(im, im)

@@ -1,0 +1,113 @@
+"""Kernel K5's plain version and the attention dispatch against the JAX
+package, on the CPU: ``flash_attend_plain`` against the Pallas
+``flash_attend`` in interpret mode (square, ragged and rectangular),
+``attend`` and ``attend_reference`` against the JAX
+``attend_reference``. Inputs are made with numpy from a seed; float32
+unless a test says otherwise.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from atdn_vslam_tpu.ops import attention as jatt
+
+from atdn_vslam_torch.ops import attention as att
+
+torch.set_num_threads(1)
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _qkv(seed, nq, nk, d, dv, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(1, nq, d)).astype(dtype)
+    k = rng.normal(size=(1, nk, d)).astype(dtype)
+    v = rng.normal(size=(1, nk, dv)).astype(dtype)
+    return q, k, v
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("n", [64, 100, 300])
+def test_flash_attend_plain_matches_pallas(n):
+    """Against the Pallas kernel in interpret mode with 64 x 64 tiles,
+    N not always a multiple of the tile; atol 2e-5, the tolerance the
+    JAX package's own test holds that kernel to."""
+    q, k, v = _qkv(0, n, n, 32, 16)
+    want = np.asarray(jatt.flash_attend(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bq=64, bk=64, interpret=True
+    ))
+    got = att.flash_attend_plain(*_t(q, k, v))
+    assert got.shape == (1, n, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def test_flash_attend_plain_rectangular_matches_pallas():
+    """Nq != Nk (40 queries against 100 keys, 32-row tiles), atol 2e-5."""
+    q, k, v = _qkv(1, 40, 100, 32, 16)
+    want = np.asarray(jatt.flash_attend(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bq=32, bk=32, interpret=True
+    ))
+    np.testing.assert_allclose(att.flash_attend_plain(*_t(q, k, v)).numpy(), want, atol=2e-5)
+
+
+def test_flash_attend_plain_explicit_scale():
+    """GMA passes q pre-scaled and scale 1.0."""
+    q, k, v = _qkv(2, 50, 70, 16, 32)
+    want = np.asarray(jatt.flash_attend(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=1.0, bq=32, bk=32, interpret=True
+    ))
+    got = att.flash_attend_plain(*_t(q, k, v), scale=1.0)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+def test_flash_attend_wrapper_on_cpu_is_plain():
+    q, k, v = _t(*_qkv(3, 30, 45, 16, 16))
+    before = att.flash_attend.launches
+    got = att.flash_attend(q, k, v)
+    assert att.flash_attend.launches == before
+    torch.testing.assert_close(got, att.flash_attend_plain(q, k, v), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("use_pallas", [None, True, False])
+def test_attend_matches_jax_attend_reference(use_pallas):
+    """Every branch of the dispatch computes the JAX reference's
+    function: float32, 1e-5 (summation order)."""
+    q, k, v = _qkv(4, 96, 96, 32, 32)
+    want = np.asarray(jatt.attend_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = att.attend(*_t(q, k, v), use_pallas=use_pallas)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_attend_reference_bf16_rounds_like_jax():
+    """bf16 q, k, v: both round the float32 softmax to bf16 before the
+    product and the float32 result once, so they agree to one bf16 ulp
+    of the output (rtol 2^-7, atol 2^-9 for outputs near 0)."""
+    q, k, v = _qkv(5, 64, 80, 16, 16)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jatt.attend_reference(jq, jk, jv, scale=0.25).astype(jnp.float32))
+    tq, tk, tv = (x.to(torch.bfloat16) for x in _t(q, k, v))
+    got = att.attend_reference(tq, tk, tv, scale=0.25)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0**-7, atol=2.0**-9)
+
+
+def test_attend_dispatches_by_token_count(monkeypatch):
+    """use_pallas=None takes K5 from _FLASH_MIN_TOKENS queries on and
+    the reference below; True always takes K5, False never."""
+    calls = []
+    monkeypatch.setattr(att, "flash_attend", lambda *a: calls.append("k5") or att.flash_attend_plain(*a))
+    monkeypatch.setattr(att, "attend_reference", lambda *a: calls.append("ref") or a[0])
+    assert att._MATERIALIZE_MAX_TOKENS == 8192 and att._FLASH_MIN_TOKENS == 16384
+    q = torch.zeros((1, 20, 16))
+    monkeypatch.setattr(att, "_FLASH_MIN_TOKENS", 21)
+    att.attend(q, q, q)
+    monkeypatch.setattr(att, "_FLASH_MIN_TOKENS", 20)
+    att.attend(q, q, q)
+    att.attend(q, q, q, use_pallas=False)
+    monkeypatch.setattr(att, "_FLASH_MIN_TOKENS", 21)
+    att.attend(q, q, q, use_pallas=True)
+    assert calls == ["ref", "k5", "ref", "k5"]

@@ -81,12 +81,16 @@ def test_entry_points_default_to_the_gpu(monkeypatch, tmp_path):
 def test_kernel_wrappers_have_no_cpu_fallback_on_other_devices():
     """A tensor neither on the CPU nor on a CUDA device is refused; the
     CUDA sources are only compiled when a CUDA tensor arrives."""
-    from atdn_vslam_torch.ops.attention import attention_probs_spatial
-    from atdn_vslam_torch.ops.corr_lookup import lookup_corr_pyramid
+    from atdn_vslam_torch.ops.attention import attention_probs_spatial, flash_attend
+    from atdn_vslam_torch.ops.corr_lookup import corr_dot_rowmajor, lookup_corr_pyramid
 
     meta = torch.empty((1, 4, 16), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         attention_probs_spatial(meta, meta, 2, 2)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        flash_attend(meta, meta, meta)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        corr_dot_rowmajor(meta, meta, 0.25)
     with pytest.raises(RuntimeError, match="no kernel"):
         lookup_corr_pyramid([torch.empty((1, 4, 2, 2), device="meta")],
                             torch.empty((1, 2, 2, 2), device="meta"))

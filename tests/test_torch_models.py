@@ -232,3 +232,100 @@ def test_atdnvo_two_steps_match_jax_with_carry():
         (rot_w, tr_w), _ = port(torch.from_numpy(flows), port.init_carry(1))
     np.testing.assert_allclose(rot_w[:, 1].numpy(), rot_t[:, 0].numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(tr_w[:, 1].numpy(), tr_t[:, 0].numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _spy(monkeypatch, module, name, calls):
+    """Count the calls of ``module.name`` and pass them through."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+
+
+def _attention_spies(monkeypatch):
+    import atdn_vslam_torch.models.flow.network as port_network
+    import atdn_vslam_torch.ops.attention as port_attention
+    import atdn_vslam_torch.ops.corr_lookup as port_corr
+
+    calls = {}
+    _spy(monkeypatch, port_network, "attention_probs_spatial", calls)
+    _spy(monkeypatch, port_attention, "attend_reference", calls)
+    _spy(monkeypatch, port_attention, "flash_attend_plain", calls)
+    _spy(monkeypatch, port_corr, "corr_dot_rowmajor_plain", calls)
+    return calls
+
+
+# the three attention regimes of the default build (use_pallas=None),
+# reached at 8 x 12 = 96 tokens by moving the port's token constants:
+# (materialise limit, flash threshold, the calls per pair)
+REGIMES = {
+    "materialised": (8192, 16384, {"attention_probs_spatial": 1}),
+    "per_iteration_reference": (0, 16384, {"attend_reference": ITERS}),
+    "per_iteration_flash": (0, 96, {"flash_attend_plain": ITERS}),
+}
+
+
+@pytest.mark.parametrize("regime", list(REGIMES))
+def test_raftgma_attention_regimes_match_jax(gma, frames, monkeypatch, regime):
+    """Each regime of the port's default build against the JAX flow net
+    with its materialise limit set to match (per-iteration attention in
+    JAX is its XLA ``attend_reference`` on the CPU); FLOW_TOL as above."""
+    import atdn_vslam_tpu.models.flow.network as jax_network
+    import atdn_vslam_torch.ops.attention as port_attention
+
+    materialise, flash, want_calls = REGIMES[regime]
+    model, variables, port = gma
+    im1, im2 = frames
+    monkeypatch.setattr(jax_network, "_MATERIALIZE_MAX_TOKENS", materialise)
+    want_low, want_up = _jax_flow(model, variables, jnp.asarray(im1), jnp.asarray(im2))
+    monkeypatch.setattr(port_attention, "_MATERIALIZE_MAX_TOKENS", materialise)
+    monkeypatch.setattr(port_attention, "_FLASH_MIN_TOKENS", flash)
+    calls = _attention_spies(monkeypatch)
+    with torch.no_grad():
+        got_low, got_up = port(torch.from_numpy(im1), torch.from_numpy(im2))
+    assert calls == want_calls
+    np.testing.assert_allclose(got_low.numpy(), want_low, **FLOW_TOL)
+    np.testing.assert_allclose(got_up.numpy(), want_up, **FLOW_TOL)
+
+
+def test_raftgma_use_pallas_true_matches_jax(gma, frames, monkeypatch):
+    """The port's forced streaming path (K3 builds the four levels, K5
+    attends in every iteration, their plain versions on the CPU) against
+    the JAX flow net's XLA path with the materialise limit at 0, which
+    computes the same function (JAX's own use_pallas=True needs the TPU
+    or interpret mode); FLOW_TOL."""
+    import atdn_vslam_tpu.models.flow.network as jax_network
+
+    model, variables, port = gma
+    im1, im2 = frames
+    monkeypatch.setattr(jax_network, "_MATERIALIZE_MAX_TOKENS", 0)
+    want_low, want_up = _jax_flow(model, variables, jnp.asarray(im1), jnp.asarray(im2))
+    cfg = Config(flow=FlowNetConfig(iters=ITERS, mixed_precision=False))
+    forced = build_flow_model(cfg, "cpu", use_pallas=True)
+    forced.load_state_dict(port.state_dict())
+    calls = _attention_spies(monkeypatch)
+    with torch.no_grad():
+        got_low, got_up = forced(torch.from_numpy(im1), torch.from_numpy(im2))
+    assert calls == {"corr_dot_rowmajor_plain": 4, "flash_attend_plain": ITERS}
+    np.testing.assert_allclose(got_low.numpy(), want_low, **FLOW_TOL)
+    np.testing.assert_allclose(got_up.numpy(), want_up, **FLOW_TOL)
+
+
+def test_raftgma_use_pallas_false_on_cpu_acts_like_none(gma, frames, monkeypatch):
+    """On the CPU use_pallas=False takes the default schedule: the same
+    calls and exactly the same flow as use_pallas=None."""
+    _, _, port = gma
+    im1, im2 = (torch.from_numpy(x) for x in frames)
+    cfg = Config(flow=FlowNetConfig(iters=ITERS, mixed_precision=False))
+    off = build_flow_model(cfg, "cpu", use_pallas=False)
+    off.load_state_dict(port.state_dict())
+    calls = _attention_spies(monkeypatch)
+    with torch.no_grad():
+        want_low, want_up = port(im1, im2)
+        got_low, got_up = off(im1, im2)
+    assert calls == {"attention_probs_spatial": 2}
+    torch.testing.assert_close(got_low, want_low, rtol=0, atol=0)
+    torch.testing.assert_close(got_up, want_up, rtol=0, atol=0)
