@@ -12,7 +12,8 @@ Per frame pair: the feature encoder (once per frame when the caller
 passes the previous pair's ``fmap2`` back as ``fmap1``), the context
 encoder, the correlation pyramid, then ``iters`` times the window
 lookup (kernel K2) and the update block, and last the upsample-mask
-head, once. The attention follows the JAX package's schedule by token
+head, once (with ``corr_nlanes`` the lookup of levels 1-3 is kernel
+K2n). The attention follows the JAX package's schedule by token
 count N = H/8 * W/8 (``network.py:349-364``): up to 8192 tokens the
 probabilities are materialised once per pair (kernel K1); above, every
 iteration attends anew, through the flash kernel K5 from 16384 tokens
@@ -32,6 +33,10 @@ from atdn_vslam_torch.ops import attention as _attention
 from atdn_vslam_torch.ops.attention import attention_probs_spatial
 from atdn_vslam_torch.ops.bilinear import coords_grid
 from atdn_vslam_torch.ops.corr_lookup import build_corr_pyramid, lookup_corr_pyramid
+from atdn_vslam_torch.ops.corr_lookup_nlanes import (
+    build_corr_pyramid_nlanes,
+    lookup_corr_pyramid_nlanes,
+)
 from atdn_vslam_torch.ops.upsample import convex_upsample
 from atdn_vslam_torch.utils.helpers import full_float32
 
@@ -55,6 +60,13 @@ class RAFTGMA(nn.Module):
         CUDA device it raises ``ValueError``, and on the CPU (whose
         kernel wrappers are the plain versions anyway) it acts like
         ``None``.
+    :param corr_nlanes: the JAX package's ``corr_nlanes`` switch
+        (``network.py:194-201``): levels 1-3 of the pyramid stored
+        (B, Hl, Wl, N) and looked up by kernel K2n, which rounds the hat
+        weights and row sums through the volume's type; level 0 keeps
+        K2. The JAX flow net applies it in test mode only (``:307``);
+        the port's RAFTGMA has only the test mode, so that rule holds
+        here trivially.
     """
 
     def __init__(
@@ -69,9 +81,11 @@ class RAFTGMA(nn.Module):
         position_only: bool = False,
         position_and_content: bool = False,
         use_pallas: bool | None = None,
+        corr_nlanes: bool = False,
     ):
         super().__init__()
         self.use_pallas = use_pallas
+        self.corr_nlanes = corr_nlanes
         self.iters, self.corr_levels, self.corr_radius = iters, corr_levels, corr_radius
         self.hidden_dim, self.context_dim = hidden_dim, context_dim
         self.dtype = dtype
@@ -139,9 +153,14 @@ class RAFTGMA(nn.Module):
         else:
             f1 = _nchw(fmap1)
             f2 = self.fnet(x2) if fmap2 is None else _nchw(fmap2)
-        pyramid = build_corr_pyramid(
-            _nhwc(f1), _nhwc(f2), self.corr_levels, dtype=self.dtype, use_pallas=self.use_pallas
-        )
+        if self.corr_nlanes:
+            pyramid = build_corr_pyramid_nlanes(_nhwc(f1), _nhwc(f2), self.corr_levels, self.dtype)
+            lookup = lookup_corr_pyramid_nlanes
+        else:
+            pyramid = build_corr_pyramid(
+                _nhwc(f1), _nhwc(f2), self.corr_levels, dtype=self.dtype, use_pallas=self.use_pallas
+            )
+            lookup = lookup_corr_pyramid
 
         cnet = self.cnet(self._prep(image1))
         net, inp = torch.split(cnet, [self.hidden_dim, self.context_dim], dim=1)
@@ -158,7 +177,7 @@ class RAFTGMA(nn.Module):
         if flow_init is not None:
             coords1 = coords1 + flow_init.float()
         for _ in range(self.iters):
-            corr = lookup_corr_pyramid(pyramid, coords1, self.corr_radius)
+            corr = lookup(pyramid, coords1, self.corr_radius)
             flow = coords1 - coords0
             net, delta_flow = self.update_block(
                 net, inp, _nchw(corr).to(self.dtype), _nchw(flow).to(self.dtype), attn

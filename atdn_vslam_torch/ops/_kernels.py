@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.
 The build happens at first use, into ``build/kernels/`` at the root of
-the checkout; a library is named after the hash of its source and
-flags, so an edited source rebuilds and an unchanged one is reused.
+the checkout; a library is named after the hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
 )
 
 #: the C entry points of each source: name -> argtypes
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "attention_probs": {
         # q, k, m, l, out, b, n, n_kv, n_pad, d, scale, is_bf16, device, stream
@@ -48,6 +49,24 @@ _SIGNATURES = {
     "corr_dot": {
         # f1, f2, out, b, n, m, c, inv_sqrt_c, in_bf16, out_bf16, device, stream
         "atdn_corr_dot": (_P,) * 3 + (_I,) * 4 + (_F, _I, _I, _I, _P),
+    },
+    "corr_lookup_nlanes": {
+        # vol0..3, coords, out, h0..3, w0..3, b, n, levels, first_level, radius,
+        # is_bf16, device, stream
+        "atdn_corr_lookup_nlanes": (_P,) * 6 + (_I,) * 8 + (_I,) * 7 + (_P,),
+    },
+    "apply_probs": {
+        # p, v, out, b, m, kp, nv, dv, is_bf16, device, stream
+        "atdn_apply_probs": (_P,) * 3 + (_I,) * 7 + (_P,),
+    },
+    "corr_lookup_slab": {
+        # vol0..3, coords, out, hp0..3, w0..3, b, n, levels, radius, is_bf16, device, stream
+        "atdn_corr_lookup_slab": (_P,) * 6 + (_I,) * 8 + (_I,) * 6 + (_P,),
+    },
+    "corr_dot_tiled": {
+        # f1, f2, out, b, n, hl, wl, c, sb, sh, sw, sc, inv_sqrt_c, in_bf16, out_bf16,
+        # device, stream
+        "atdn_corr_dot_tiled": (_P,) * 3 + (_I,) * 5 + (_L,) * 4 + (_F, _I, _I, _I, _P),
     },
 }
 
@@ -70,6 +89,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -19,6 +19,12 @@ values and never slices the large matrix.
 Kernel K5 (``csrc/flash_attend.cu``) replaces the TPU kernel
 ``atdn_vslam_tpu/ops/attention.py:flash_attend``: out = softmax(scale
 q k^T) v in one pass over the keys, the scores never stored.
+
+Kernel K4 (``csrc/apply_probs.cu``) replaces the TPU kernel
+``atdn_vslam_tpu/ops/attention.py:flash_apply_probs``: the P @ V read of
+K1's probabilities, reached through ``apply_attention_probs(...,
+use_pallas=True)`` as in the JAX package; the default read stays a
+``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -101,17 +107,112 @@ def attention_probs_spatial(
 attention_probs_spatial.launches = 0
 
 
-def apply_attention_probs(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_apply_probs_plain(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4: out = probs @ v in float32, v
+    zero-extended to probs' key count, cast once to v's type.
+
+    :param probs: (B, H, W, K) spatial probabilities whose columns past
+        v's token count are zero padding (K1's ``keep_padded`` output).
+    :param v: (B, N_v, Dv), N_v <= K.
+    :return: (B, H, W, Dv) in v's type.
+    """
+    b, h, w, n = probs.shape
+    vf = F.pad(v.float(), (0, 0, 0, n - v.shape[1]))
+    out = torch.matmul(probs.reshape(b, h * w, n).float(), vf)
+    return out.to(v.dtype).reshape(b, h, w, -1)
+
+
+def _apply_probs_kernel(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if probs.device.type == "cpu":
+        return flash_apply_probs_plain(probs, v)
+    if probs.device.type != "cuda":
+        raise RuntimeError(f"flash_apply_probs: no kernel for {probs.device}")
+    if probs.ndim != 4 or v.ndim != 3 or v.shape[0] != probs.shape[0] or v.device != probs.device:
+        raise ValueError(
+            f"probs {tuple(probs.shape)} on {probs.device} must be (B, H, W, K) and v "
+            f"{tuple(v.shape)} on {v.device} (B, N_v, Dv)"
+        )
+    b, h, w, n = probs.shape
+    n_v, dv = v.shape[1:]
+    if probs.dtype not in (torch.bfloat16, torch.float32) or v.dtype != probs.dtype:
+        raise TypeError(f"flash_apply_probs takes bf16 or float32, got {probs.dtype}/{v.dtype}")
+    if n % 8 or not 1 <= n_v <= n or dv % 16 or not 16 <= dv <= 128 or h * w < 1:
+        raise ValueError(
+            f"keys {n} must be a multiple of 8 and at least N_v = {n_v} >= 1, value width "
+            f"{dv} a multiple of 16 in [16, 128], rows {h} x {w} at least 1"
+        )
+    probs, v = _kernels.aligned(probs), _kernels.aligned(v)
+    out = torch.empty((b, h, w, dv), dtype=v.dtype, device=v.device)
+    status = _kernels.library("apply_probs").atdn_apply_probs(
+        probs.data_ptr(), v.data_ptr(), out.data_ptr(), b, h * w, n, n_v, dv,
+        int(v.dtype == torch.bfloat16), v.device.index or 0,
+        torch.cuda.current_stream(v.device).cuda_stream,
+    )
+    _kernels.check(status, "apply_probs kernel")
+    flash_apply_probs.launches += 1
+    return out
+
+
+class _FlashApplyProbs(torch.autograd.Function):
+    """K4 forward; the backward is the JAX package's custom VJP
+    (``attention.py:872-886``), two plain float32 products: dv = P^T
+    dout in v's type, dP = dout v^T in P's type, zero on P's pad
+    columns (constants)."""
+
+    @staticmethod
+    def forward(ctx, probs, v):
+        ctx.save_for_backward(probs, v)
+        return _apply_probs_kernel(probs, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        probs, v = ctx.saved_tensors
+        b, h, w, n = probs.shape
+        n_v = v.shape[1]
+        df = dout.float().reshape(b, h * w, -1)
+        dp = dv = None
+        if ctx.needs_input_grad[0]:
+            dp = torch.matmul(df, v.float().transpose(1, 2)).to(probs.dtype)
+            dp = F.pad(dp, (0, n - n_v)).reshape(b, h, w, n)
+        if ctx.needs_input_grad[1]:
+            p = probs.reshape(b, h * w, n)[..., :n_v].float()
+            dv = torch.matmul(p.transpose(1, 2), df).to(v.dtype)
+        return dp, dv
+
+
+def flash_apply_probs(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K4: out = probs @ v over spatial probabilities (contract of
+    :func:`flash_apply_probs_plain`), differentiable in both.
+
+    On a CPU tensor the forward is the plain version; on a CUDA tensor
+    it launches the CUDA kernel (probs and v both bf16 or both float32,
+    K a multiple of 8, Dv a multiple of 16 up to 128, float32
+    accumulation) and counts one launch, or raises.
+    """
+    return _FlashApplyProbs.apply(probs, v)
+
+
+flash_apply_probs.launches = 0
+
+
+def apply_attention_probs(
+    probs: torch.Tensor, v: torch.Tensor, use_pallas: bool | None = None
+) -> torch.Tensor:
     """out = probs @ v, float32 accumulation, the per-iteration read of
     the materialised probabilities (``torch.matmul``; the JAX package
-    leaves it to XLA).
+    leaves it to XLA). ``use_pallas=True`` takes kernel K4
+    (:func:`flash_apply_probs`) for spatial probabilities, with v cast
+    to the probabilities' type, as the JAX package does (``:918-919``).
 
     :param probs: (B, H, W, N_pad) spatial probabilities whose columns
         past v's token count are zero padding, or (B, N, N).
     :param v: (B, N, D) values, zero-extended here to N_pad.
-    :return: (B, H, W, D) or (B, N, D) in v's type.
+    :return: (B, H, W, D) or (B, N, D) in v's type (probs' type under
+        ``use_pallas=True``).
     """
     if probs.ndim == 4:
+        if use_pallas is True:
+            return flash_apply_probs(probs, v.to(probs.dtype))
         b, h, w, n = probs.shape
         if n != v.shape[1]:
             v = F.pad(v, (0, 0, 0, n - v.shape[1]))

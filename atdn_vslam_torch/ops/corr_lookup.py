@@ -122,11 +122,19 @@ def build_corr_pyramid(
             corr = torch.matmul(f1, f2.transpose(1, 2).to(f1.dtype)).to(dtype)
         pyramid.append(corr.reshape(b, h1 * w1, hl, wl))
         if level < num_levels - 1:
-            h2_, w2_ = hl // 2, wl // 2
-            f2l = f2l[:, : h2_ * 2, : w2_ * 2].reshape(b, h2_, 2, w2_, 2, c)
-            f2l = f2l.float().mean(dim=(2, 4)).to(fmap2.dtype)
-            hl, wl = h2_, w2_
+            f2l = pool_features(f2l)
+            hl, wl = f2l.shape[1:3]
     return pyramid
+
+
+def pool_features(f: torch.Tensor) -> torch.Tensor:
+    """2x2 average pooling of a (B, H, W, C) feature map (odd edges
+    cropped), in float32, back in ``f``'s type: the next pyramid level's
+    features."""
+    b, h, w, c = f.shape
+    h2, w2 = h // 2, w // 2
+    f = f[:, : h2 * 2, : w2 * 2].reshape(b, h2, 2, w2, 2, c)
+    return f.float().mean(dim=(2, 4)).to(f.dtype)
 
 
 def lookup_corr_pyramid_plain(

@@ -26,10 +26,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
   7. forced_streaming: the flow net built with ``use_pallas=True`` on
      the same weights and frames at 752x2464 (K3 4 times and K5 12
      times per pair), its flows against slice_2x's default path;
-  8. the ``kernels`` line, the card, and last the ``ok`` line.
+  8. nlanes: the flow net built with ``corr_nlanes=True`` on the same
+     weights and frames at 376x1232, streamed with the frame cache (K1
+     once, K2 and K2n 12 times per pair), its flows against the default
+     build's, and both builds' ms per pair;
+  9. entry_points: the entry points of K3t (``build_pyramid_tiled``),
+     K2s (``lookup_corr_pyramid_slab``) and K4
+     (``apply_attention_probs(use_pallas=True)``) on the flow net's own
+     feature maps, coordinates and probabilities at 376x1232, each
+     against the default path's result;
+  10. apply_probs_backward: K4's backward through its autograd.Function
+      at the KITTI shape against the plain products;
+  11. the ``kernels`` line, the card, and last the ``ok`` line.
+
+The kernel lines of phase 3 also cover K2n (the three small KITTI
+levels), K4 (K1's KITTI output), K2s (the row-padded KITTI pyramid) and
+K3t (the KITTI pyramid).
 
 ``--profile N`` adds N more streaming steps under ``torch.profiler`` to
-each slice's line: device time by kernel and the device's idle share.
+each slice's line and to both builds of the nlanes phase: device time
+by kernel and the device's idle share.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -62,11 +78,22 @@ K2_TOL = {"rtol": 1e-5, "atol": 1e-5}  # both lerp the same bf16 taps in float32
 K5_TOL = {"rtol": 2.0**-7, "atol": 2.0**-8}
 K5_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}  # float32 on both sides, summation order
 K3_TOL = {"rtol": 2.0**-7, "atol": 1e-5}  # both round one float32 sum: one bf16 ulp
+# K2n: the same two-term float32 sums and bf16 roundings on both sides
+K2N_TOL = {"rtol": 1e-5, "atol": 1e-5}
+K2S_TOL = {"rtol": 1e-5, "atol": 1e-5}  # both contract the same bf16 taps in float32
+# K4: bf16 out of float32 sums taken in another order: one bf16 ulp
+K4_TOL = {"rtol": 2.0**-7, "atol": 1e-5}
+K4_GRAD_TOL = {"rtol": 1e-5, "atol": 1e-5}  # the same float32 products on both sides
 FLOW_F32_TOL = 1e-3  # px, float32 flow on the GPU (TF32 off) against the CPU
 # px at 1/8 resolution: forced and default 2x paths differ only where
 # the float32 volume sums, taken in another order, round to another bf16
 # (0.0034-0.0044 px measured on flows of ~0.9 px, seeded weights)
 FLOW_FORCED_TOL = 0.02
+# px at 1/8 resolution: the nlanes build rounds the hat weights and row
+# sums of levels 1-3 through bf16 where the default K2 lerps in float32,
+# a relative difference of up to 2^-8 in those lookups, carried through
+# 12 iterations on seeded random weights (flows of ~1 px)
+FLOW_NLANES_TOL = 0.05
 
 
 def emit(phase: str, **fields) -> None:
@@ -166,14 +193,14 @@ def k1_attention_probs(device, hw8=(47, 154), d=128, dtype=torch.bfloat16, seed=
     }
 
 
-def _in_bound_taps(pyramid, coords, radius: int) -> int:
-    """Taps of the (2r+2)^2 patches that lie inside their level: what a
-    gather must read for these coordinates."""
+def _in_bound_taps(shapes, coords, radius: int, first_level: int = 0) -> int:
+    """Taps of the (2r+2)^2 patches that lie inside their level (levels
+    ``first_level``, ... of the given (rows, columns)): what a gather
+    must read for these coordinates."""
     flat = coords.reshape(-1, 2).float()
     taps = torch.arange(2 * radius + 2, device=coords.device) - radius
     total = 0
-    for level, corr in enumerate(pyramid):
-        hl, wl = corr.shape[-2:]
+    for level, (hl, wl) in enumerate(shapes, start=first_level):
         c = torch.floor(flat / 2.0**level)
         rows = ((c[:, 1:2] + taps >= 0) & (c[:, 1:2] + taps < hl)).sum(1)
         cols = ((c[:, 0:1] + taps >= 0) & (c[:, 0:1] + taps < wl)).sum(1)
@@ -181,25 +208,51 @@ def _in_bound_taps(pyramid, coords, radius: int) -> int:
     return total
 
 
-def k2_corr_lookup(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=1, radius=4) -> dict:
+def lookup_inputs(device, hw8, c, dtype, seed):
+    """Random bf16 feature maps and coordinates around the identity, 5%
+    of them partly or wholly outside every level."""
     from atdn_vslam_torch.ops.bilinear import coords_grid
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, w = hw8
+    f1 = torch.randn((1, h, w, c), generator=g, device=device).to(dtype)
+    f2 = torch.randn((1, h, w, c), generator=g, device=device).to(dtype)
+    coords = coords_grid(h, w, device=device)[None]
+    coords = coords + 6.0 * torch.randn(coords.shape, generator=g, device=device)
+    far = torch.rand(coords.shape[:-1], generator=g, device=device) < 0.05
+    coords[far] = coords[far] * 40.0 - 1000.0
+    coords[0, 0, :3] = torch.tensor([[-3.5, -2.25], [w - 1.5, h + 0.75], [-20.0, 5.0]], device=device)
+    return f1, f2, coords
+
+
+def grid_sample_windows(levels, coords, radius: int, first_level: int = 0):
+    """The reference CorrBlock's lookup, one ``grid_sample`` per level:
+    ``levels`` are (N, 1, Hl, Wl) views, level ``first_level`` first."""
+    span = 2 * radius + 1
+    n = levels[0].shape[0]
+    d = torch.arange(-radius, radius + 1, device=coords.device, dtype=torch.float32)
+    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1).reshape(1, span, span, 2)
+    outs = []
+    for level, corr in enumerate(levels, start=first_level):
+        hl, wl = corr.shape[-2:]
+        xy = coords.reshape(n, 1, 1, 2) / 2**level + delta
+        grid = torch.stack([2 * xy[..., 0] / (wl - 1) - 1, 2 * xy[..., 1] / (hl - 1) - 1], -1)
+        outs.append(F.grid_sample(
+            corr, grid.to(corr.dtype), mode="bilinear", padding_mode="zeros", align_corners=True,
+        ))
+    return outs
+
+
+def k2_corr_lookup(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=1, radius=4) -> dict:
     from atdn_vslam_torch.ops.corr_lookup import (
         build_corr_pyramid,
         lookup_corr_pyramid,
         lookup_corr_pyramid_plain,
     )
 
-    g = torch.Generator(device=device).manual_seed(seed)
+    f1, f2, coords = lookup_inputs(device, hw8, c, dtype, seed)
     h, w = hw8
-    f1 = torch.randn((1, h, w, c), generator=g, device=device).to(dtype)
-    f2 = torch.randn((1, h, w, c), generator=g, device=device).to(dtype)
     pyramid = build_corr_pyramid(f1, f2, 4, dtype=dtype)
-    coords = coords_grid(h, w, device=device)[None]
-    coords = coords + 6.0 * torch.randn(coords.shape, generator=g, device=device)
-    # some windows partly and wholly outside every level
-    far = torch.rand(coords.shape[:-1], generator=g, device=device) < 0.05
-    coords[far] = coords[far] * 40.0 - 1000.0
-    coords[0, 0, :3] = torch.tensor([[-3.5, -2.25], [w - 1.5, h + 0.75], [-20.0, 5.0]], device=device)
     got = lookup_corr_pyramid(pyramid, coords, radius)
     ref = lookup_corr_pyramid_plain(pyramid, coords, radius)
     if got.shape != ref.shape:
@@ -208,23 +261,13 @@ def k2_corr_lookup(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=1, r
 
     span = 2 * radius + 1
     n = h * w
+    views = [corr.reshape(n, 1, *corr.shape[-2:]) for corr in pyramid]
 
-    def library():  # the reference CorrBlock's grid_sample, one call per level
-        d = torch.arange(-radius, radius + 1, device=device, dtype=torch.float32)
-        delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1).reshape(1, span, span, 2)
-        outs = []
-        for level, corr in enumerate(pyramid):
-            hl, wl = corr.shape[-2:]
-            xy = coords.reshape(n, 1, 1, 2) / 2**level + delta
-            grid = torch.stack([2 * xy[..., 0] / (wl - 1) - 1, 2 * xy[..., 1] / (hl - 1) - 1], -1)
-            outs.append(F.grid_sample(
-                corr.reshape(n, 1, hl, wl), grid.to(corr.dtype), mode="bilinear",
-                padding_mode="zeros", align_corners=True,
-            ))
-        return outs
+    def library():
+        return grid_sample_windows(views, coords, radius)
 
     bytes_moved = (
-        _in_bound_taps(pyramid, coords, radius) * pyramid[0].element_size()
+        _in_bound_taps([c.shape[-2:] for c in pyramid], coords, radius) * pyramid[0].element_size()
         + coords.numel() * 4 + got.numel() * got.element_size()
     )
     bound_ms, bound_by = bound(bytes_moved, 0.0, dtype)
@@ -319,6 +362,196 @@ def k3_corr_dot(device, n=94 * 308, c=256, seed=6) -> dict:
     }
 
 
+def k2n_nlanes(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=7, radius=4) -> dict:
+    """K2n over the three small levels of the KITTI nlanes pyramid, one
+    launch, against its plain version; the library yardstick is
+    ``grid_sample`` per level on (N, 1, Hl, Wl) views of the same
+    volumes."""
+    from atdn_vslam_torch.ops.corr_lookup_nlanes import (
+        build_corr_pyramid_nlanes,
+        nlanes_lookup_level_plain,
+        nlanes_lookup_levels,
+    )
+
+    f1, f2, coords = lookup_inputs(device, hw8, c, dtype, seed)
+    n = hw8[0] * hw8[1]
+    vols = build_corr_pyramid_nlanes(f1, f2, 4, dtype)[1:]
+    flat = coords.reshape(1, n, 2)
+
+    def plain():
+        return torch.cat([nlanes_lookup_level_plain(v, flat, i + 1, radius) for i, v in enumerate(vols)], -1)
+
+    got = nlanes_lookup_levels(vols, flat, 1, radius)
+    max_err = check_close("corr_lookup_nlanes", got, plain(), **K2N_TOL)
+    views = [v.permute(0, 3, 1, 2).reshape(n, 1, *v.shape[1:3]) for v in vols]
+    bytes_moved = (
+        _in_bound_taps([v.shape[1:3] for v in vols], coords, radius, 1) * vols[0].element_size()
+        + coords.numel() * 4 + got.numel() * got.element_size()
+    )
+    bound_ms, bound_by = bound(bytes_moved, 0.0, dtype)
+    return {
+        "name": "corr_lookup_nlanes",
+        "route": "cuda",
+        "source": "atdn_vslam_torch/csrc/corr_lookup_nlanes.cu",
+        "replaces": "atdn_vslam_tpu/ops/corr_lookup_nlanes.py:97",
+        "shape": [1, n, len(vols), (2 * radius + 1) ** 2],
+        "levels": [list(v.shape[1:3]) for v in vols], "dtype": str(dtype), "tolerance": K2N_TOL,
+        "max_abs_err": max_err,
+        "ms": time_ms(lambda: nlanes_lookup_levels(vols, flat, 1, radius), device),
+        "plain_ms": time_ms(plain, device),
+        "library_ms": time_ms(lambda: grid_sample_windows(views, coords, radius, 1), device),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def k4_inputs(device, hw8, d, seed):
+    """K1's probabilities of random q, k at ``hw8`` (bf16) and random
+    values."""
+    from atdn_vslam_torch.ops.attention import attention_probs_spatial
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, w = hw8
+    n = h * w
+    q = (torch.randn((1, n, d), generator=g, device=device) * d**-0.5).to(torch.bfloat16)
+    k = torch.randn((1, n, d), generator=g, device=device).to(torch.bfloat16)
+    v = torch.randn((1, n, d), generator=g, device=device).to(torch.bfloat16)
+    return attention_probs_spatial(q, k, h, w, 1.0), v, g
+
+
+def k4_apply_probs(device, hw8=(47, 154), d=128, seed=8) -> dict:
+    """K4 on K1's KITTI output (bf16 probabilities, 7238 x 7296) against
+    random values, against its plain version."""
+    from atdn_vslam_torch.ops.attention import flash_apply_probs, flash_apply_probs_plain
+
+    probs, v, _ = k4_inputs(device, hw8, d, seed)
+    n, n_pad = v.shape[1], probs.shape[-1]
+    got = flash_apply_probs(probs, v)
+    max_err = check_close("apply_probs", got, flash_apply_probs_plain(probs, v), **K4_TOL)
+    p2 = probs.reshape(1, n, n_pad)
+    v_pad = F.pad(v, (0, 0, 0, n_pad - n))
+    bytes_moved = probs.numel() * 2 + v.numel() * 2 + got.numel() * 2
+    bound_ms, bound_by = bound(bytes_moved, 2.0 * n * n_pad * d, torch.bfloat16)
+    return {
+        "name": "apply_probs",
+        "route": "cuda",
+        "source": "atdn_vslam_torch/csrc/apply_probs.cu",
+        "replaces": "atdn_vslam_tpu/ops/attention.py:851",
+        "shape": [1, n, n_pad, d], "dtype": "torch.bfloat16", "tolerance": K4_TOL,
+        "max_abs_err": max_err,
+        "ms": time_ms(lambda: flash_apply_probs(probs, v), device),
+        "plain_ms": time_ms(lambda: flash_apply_probs_plain(probs, v), device),
+        "library_ms": time_ms(lambda: torch.matmul(p2, v_pad), device),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def k4_backward(device, hw8=(47, 154), d=128, seed=8) -> dict:
+    """K4's backward on the card: gradients through its autograd.Function
+    (K4 forward, then the two float32 products of the JAX package's VJP)
+    on the kernel line's inputs, against the same products written out,
+    and the pad columns of P getting exactly zero. Run after the slices:
+    autograd's device thread keeps a cuBLAS workspace of its own, which
+    would otherwise count in the slices' peak memory."""
+    from atdn_vslam_torch.ops.attention import flash_apply_probs
+
+    probs, v, g = k4_inputs(device, hw8, d, seed)
+    n, n_pad = v.shape[1], probs.shape[-1]
+    p_t, v_t = probs.clone().requires_grad_(), v.clone().requires_grad_()
+    cot = torch.randn((1, *hw8, d), generator=g, device=device).to(torch.bfloat16)
+    (flash_apply_probs(p_t, v_t) * cot).sum().backward()  # dout = cot, exactly
+    df = cot.float().reshape(1, n, d)
+    want_dv = torch.matmul(probs.reshape(1, n, n_pad)[..., :n].float().mT, df).to(v.dtype)
+    want_dp = F.pad(torch.matmul(df, v.float().mT).to(probs.dtype), (0, n_pad - n))
+    errs = {
+        "dv": check_close("apply_probs dv", v_t.grad, want_dv, **K4_GRAD_TOL),
+        "dp": check_close("apply_probs dP", p_t.grad.reshape(1, n, n_pad), want_dp, **K4_GRAD_TOL),
+    }
+    if bool((p_t.grad[..., n:] != 0).any()):
+        raise AssertionError("apply_probs: the pad columns of P have a non-zero gradient")
+    return {"shape": [1, n, n_pad, d], "max_abs_err": errs, "tolerance": K4_GRAD_TOL,
+            "pad_columns_zero": True}
+
+
+def k2s_slab(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=9, radius=4) -> dict:
+    """K2s over the KITTI pyramid, rows padded once (level 0: 47 -> 56),
+    against its plain version; the library yardstick is ``grid_sample``
+    per level on the unpadded levels."""
+    from atdn_vslam_torch.ops.corr_lookup import build_corr_pyramid
+    from atdn_vslam_torch.ops.corr_lookup_slab import (
+        lookup_corr_pyramid_slab,
+        lookup_corr_pyramid_slab_plain,
+        pad_pyramid_for_slab,
+    )
+
+    f1, f2, coords = lookup_inputs(device, hw8, c, dtype, seed)
+    n = hw8[0] * hw8[1]
+    pyramid = build_corr_pyramid(f1, f2, 4, dtype=dtype)
+    padded, rows = pad_pyramid_for_slab(pyramid, radius)
+    got = lookup_corr_pyramid_slab(padded, coords, radius, orig_rows=rows)
+    ref = lookup_corr_pyramid_slab_plain(padded, coords, radius, orig_rows=rows)
+    max_err = check_close("corr_lookup_slab", got, ref, **K2S_TOL)
+    views = [corr.reshape(n, 1, *corr.shape[-2:]) for corr in pyramid]
+    bytes_moved = (
+        _in_bound_taps([c.shape[-2:] for c in pyramid], coords, radius) * pyramid[0].element_size()
+        + coords.numel() * 4 + got.numel() * got.element_size()
+    )
+    bound_ms, bound_by = bound(bytes_moved, 0.0, dtype)
+    return {
+        "name": "corr_lookup_slab",
+        "route": "cuda",
+        "source": "atdn_vslam_torch/csrc/corr_lookup_slab.cu",
+        "replaces": "atdn_vslam_tpu/ops/corr_lookup_slab.py:154",
+        "shape": [1, n, len(padded), (2 * radius + 1) ** 2],
+        "padded_rows": [p.shape[2] for p in padded], "rows": list(rows),
+        "dtype": str(dtype), "tolerance": K2S_TOL, "max_abs_err": max_err,
+        "ms": time_ms(lambda: lookup_corr_pyramid_slab(padded, coords, radius, orig_rows=rows), device),
+        "plain_ms": time_ms(lambda: lookup_corr_pyramid_slab_plain(padded, coords, radius, orig_rows=rows), device),
+        "library_ms": time_ms(lambda: grid_sample_windows(views, coords, radius), device),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def k3t_corr_dot_tiled(device, hw8=(47, 154), c=256, seed=10) -> dict:
+    """K3t over the KITTI pyramid, four launches (level 0's f2 the NHWC
+    view of a channels-first map, read through its strides), against
+    its plain version; the library yardstick is one ``torch.matmul`` per
+    level."""
+    from atdn_vslam_torch.ops.corr_dot_tiled import corr_dot_tiled, corr_dot_tiled_plain
+    from atdn_vslam_torch.ops.corr_lookup import pool_features
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, w = hw8
+    n = h * w
+    f1 = torch.randn((1, n, c), generator=g, device=device).to(torch.bfloat16)
+    f2 = torch.randn((1, c, h, w), generator=g, device=device).to(torch.bfloat16).permute(0, 2, 3, 1)
+    levels = [f2]
+    for _ in range(3):
+        levels.append(pool_features(levels[-1]))
+    inv = c**-0.5
+    max_err = max(
+        check_close(f"corr_dot_tiled (level {i})", corr_dot_tiled(f1, f2l, inv),
+                    corr_dot_tiled_plain(f1, f2l, inv), **K3_TOL)
+        for i, f2l in enumerate(levels)
+    )
+    f1s = f1 * inv  # exact: 1/16
+    mats = [f2l.flatten(1, 2).mT for f2l in levels]  # views, level 0's included
+    m = sum(f2l.shape[1] * f2l.shape[2] for f2l in levels)
+    bytes_moved = (f1.numel() + m * c) * 2 + n * m * 2
+    bound_ms, bound_by = bound(bytes_moved, 2.0 * n * m * c, torch.bfloat16)
+    return {
+        "name": "corr_dot_tiled",
+        "route": "cuda",
+        "source": "atdn_vslam_torch/csrc/corr_dot_tiled.cu",
+        "replaces": "tools/profiling/exp_r5_tileddot.py:47",
+        "shape": [1, n, m, c], "levels": [list(f2l.shape[1:3]) for f2l in levels],
+        "calls": len(levels), "dtype": "torch.bfloat16", "tolerance": K3_TOL, "max_abs_err": max_err,
+        "ms": time_ms(lambda: [corr_dot_tiled(f1, f2l, inv) for f2l in levels], device),
+        "plain_ms": time_ms(lambda: [corr_dot_tiled_plain(f1, f2l, inv) for f2l in levels], device),
+        "library_ms": time_ms(lambda: [torch.matmul(f1s, x) for x in mats], device),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
 def seeded_weights(cfg, seed: int, gamma: float = 0.5):
     """Random flow and odometry weights from ``seed`` (CPU float32
     state dicts), with GMA's gamma set non-zero so the attention path
@@ -367,17 +600,18 @@ def new_runtime(cfg, weights, device):
     return rt
 
 
-def profile_frames(rt, frames, top: int = 25) -> dict:
-    """Device time by kernel over ``frames`` more streaming steps
-    (``torch.profiler``), and the share of the wall time the device was
-    busy (one stream, so kernel times do not overlap)."""
+def profile_frames(step, frames, top: int = 25) -> dict:
+    """Device time by kernel over ``step(f)`` for each of ``frames``
+    (more streaming steps, under ``torch.profiler``), and the share of
+    the wall time the device was busy (one stream, so kernel times do
+    not overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for f in frames:
-            rt(f)
+            step(f)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -402,13 +636,23 @@ def profile_frames(rt, frames, top: int = 25) -> dict:
 
 def _counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
-    from atdn_vslam_torch.ops.attention import attention_probs_spatial, flash_attend
+    from atdn_vslam_torch.ops.attention import attention_probs_spatial, flash_apply_probs, flash_attend
+    from atdn_vslam_torch.ops.corr_dot_tiled import corr_dot_tiled
     from atdn_vslam_torch.ops.corr_lookup import corr_dot_rowmajor, lookup_corr_pyramid
+    from atdn_vslam_torch.ops.corr_lookup_nlanes import nlanes_lookup_levels
+    from atdn_vslam_torch.ops.corr_lookup_slab import lookup_corr_pyramid_slab
 
     return {
         "attention_probs": attention_probs_spatial, "corr_lookup": lookup_corr_pyramid,
         "corr_dot": corr_dot_rowmajor, "flash_attend": flash_attend,
+        "corr_lookup_nlanes": nlanes_lookup_levels, "apply_probs": flash_apply_probs,
+        "corr_lookup_slab": lookup_corr_pyramid_slab, "corr_dot_tiled": corr_dot_tiled,
     }
+
+
+def launches_of(**counts) -> dict:
+    """Every kernel's launch count: the given ones, zero for the rest."""
+    return {name: counts.get(name, 0) for name in _counters()}
 
 
 def reset_launches() -> None:
@@ -432,9 +676,10 @@ def flow_config(keyframes_path: str, hw, iters: int, bf16: bool):
 
 def agreement(device, keyframes_path: str, hw=(96, 192), iters=2, frames=4) -> dict:
     """Poses of the runtime on ``device`` (float32) against the CPU's
-    plain versions, same weights and frames; then the flow of
-    ``RAFTGMA(use_pallas=True)`` (K3 and K5 on the GPU) against the
-    CPU's, on the first pair."""
+    plain versions, same weights and frames; then the flows of
+    ``RAFTGMA(use_pallas=True)`` (K3 and K5 on the GPU) and of
+    ``RAFTGMA(corr_nlanes=True)`` (K1, K2 and K2n) against the CPU's, on
+    the first pair."""
     from atdn_vslam_torch.models.factory import build_flow_model
 
     cfg = flow_config(keyframes_path, hw, iters, bf16=False)
@@ -447,41 +692,44 @@ def agreement(device, keyframes_path: str, hw=(96, 192), iters=2, frames=4) -> d
     if not np.isfinite(got).all() or err > tol:
         raise AssertionError(f"agreement: max pose difference {err} > {tol}")
 
-    flows, launches = {}, None
-    for dev in (device, torch.device("cpu")):
-        model = build_flow_model(cfg, dev, use_pallas=True)
-        model.load_state_dict(weights[0])
-        im1, im2 = (torch.from_numpy(f).to(dev).float()[None] for f in clip[:2])
-        reset_launches()
-        with torch.inference_mode():
-            flows[dev.type] = [f.cpu() for f in model(im1, im2)]
-        if dev.type == "cuda":
-            launches = read_launches()
-            want = {"attention_probs": 0, "corr_lookup": iters, "corr_dot": 4, "flash_attend": iters}
-            if launches != want:
-                raise AssertionError(f"agreement: use_pallas=True launched {launches}, not {want}")
-    flow_err = max(
-        float((a - b).abs().max()) for a, b in zip(flows[device.type], flows["cpu"])
-    )
-    if not all(bool(f.isfinite().all()) for f in flows[device.type]) or flow_err > FLOW_F32_TOL:
-        raise AssertionError(f"agreement: use_pallas=True flow difference {flow_err} > {FLOW_F32_TOL}")
-    return {
-        "hw": list(hw), "iters": iters, "frames": frames, "max_abs_pose_diff": err, "tol": tol,
-        "use_pallas_true": {"launches": launches, "max_abs_flow_diff_px": flow_err,
-                            "tol_px": FLOW_F32_TOL},
+    out = {"hw": list(hw), "iters": iters, "frames": frames, "max_abs_pose_diff": err, "tol": tol}
+    variants = {
+        "use_pallas_true": ({"use_pallas": True},
+                            launches_of(corr_lookup=iters, corr_dot=4, flash_attend=iters)),
+        "corr_nlanes": ({"corr_nlanes": True},
+                        launches_of(attention_probs=1, corr_lookup=iters, corr_lookup_nlanes=iters)),
     }
+    for name, (switch, want) in variants.items():
+        flows, launches = {}, None
+        for dev in (device, torch.device("cpu")):
+            model = build_flow_model(cfg, dev, **switch)
+            model.load_state_dict(weights[0])
+            im1, im2 = (torch.from_numpy(f).to(dev).float()[None] for f in clip[:2])
+            reset_launches()
+            with torch.inference_mode():
+                flows[dev.type] = [f.cpu() for f in model(im1, im2)]
+            if dev.type == "cuda":
+                launches = read_launches()
+                if launches != want:
+                    raise AssertionError(f"agreement: {name} launched {launches}, not {want}")
+        flow_err = max(
+            float((a - b).abs().max()) for a, b in zip(flows[device.type], flows["cpu"])
+        )
+        if not all(bool(f.isfinite().all()) for f in flows[device.type]) or flow_err > FLOW_F32_TOL:
+            raise AssertionError(f"agreement: {name} flow difference {flow_err} > {FLOW_F32_TOL}")
+        out[name] = {"launches": launches, "max_abs_flow_diff_px": flow_err, "tol_px": FLOW_F32_TOL}
+    return out
 
 
 def expected_launches(hw, iters: int, pairs: int) -> dict:
     """The default path's launches: K2 every iteration; K1 once per pair
     up to 8192 tokens, K5 every iteration from 16384 on; no K3."""
     n = (hw[0] // 8) * (hw[1] // 8)
-    return {
-        "attention_probs": pairs if n <= 8192 else 0,
-        "corr_lookup": iters * pairs,
-        "corr_dot": 0,
-        "flash_attend": iters * pairs if n >= 16384 else 0,
-    }
+    return launches_of(
+        attention_probs=pairs if n <= 8192 else 0,
+        corr_lookup=iters * pairs,
+        flash_attend=iters * pairs if n >= 16384 else 0,
+    )
 
 
 def stream_slice(
@@ -540,8 +788,7 @@ def forced_streaming(device, hw=HW_2X, iters=12, pairs=3) -> dict:
             flows[use_pallas] = [model(ims[i], ims[i + 1])[0] for i in range(pairs)]
             if use_pallas:
                 launches = read_launches()
-    want = {"attention_probs": 0, "corr_lookup": iters * pairs,
-            "corr_dot": 4 * pairs, "flash_attend": iters * pairs}
+    want = launches_of(corr_lookup=iters * pairs, corr_dot=4 * pairs, flash_attend=iters * pairs)
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"forced_streaming: launches {launches} for {pairs} pairs, not {want}")
     diff = max(float((a - b).abs().max()) for a, b in zip(flows[True], flows[None]))
@@ -554,11 +801,146 @@ def forced_streaming(device, hw=HW_2X, iters=12, pairs=3) -> dict:
     }
 
 
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def nlanes(device, hw=FULL_HW, iters=12, pairs=6, profile: int = 0) -> dict:
+    """The flow net built with ``corr_nlanes=True`` and the default
+    build, on the slices' weights (seed 0) and frames (seed 1), each
+    streamed over ``pairs`` frame pairs with the frame cache (image2's
+    feature map comes back as the next pair's ``fmap1``): launches per
+    pair, the low-res flows of the two builds against each other, and
+    ms per pair (host clock around each synchronised pair; the first
+    pair is left out). ``profile`` more pairs of each build run under
+    ``torch.profiler``."""
+    from atdn_vslam_torch.models.factory import build_flow_model
+
+    cfg = flow_config(os.devnull, hw, iters, bf16=True)
+    flow_sd, _ = seeded_weights(cfg, seed=0)
+    frames = synthetic_frames(pairs + profile + 1, hw, seed=1)
+    ims = [torch.from_numpy(f).to(device).float()[None] for f in frames]
+    runs, profiles = {}, {}
+    for corr_nlanes in (True, False):
+        model = build_flow_model(cfg, device, corr_nlanes=corr_nlanes)
+        model.load_state_dict(flow_sd)
+        flows, times = [], []
+        state = {}
+
+        def step(i):
+            (low, _), state["fmap"] = model(ims[i], ims[i + 1], fmap1=state["fmap"], return_features=True)
+            return low
+
+        with torch.inference_mode():
+            state["fmap"] = model(ims[0], encode_only=True)
+            reset_launches()
+            for i in range(pairs):
+                _sync(device)
+                t0 = time.perf_counter()
+                flows.append(step(i))
+                _sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            runs[corr_nlanes] = (flows, times, read_launches())
+            if profile:
+                profiles[corr_nlanes] = profile_frames(step, range(pairs, pairs + profile))
+    want = {
+        True: launches_of(attention_probs=pairs, corr_lookup=iters * pairs,
+                          corr_lookup_nlanes=iters * pairs),
+        False: expected_launches(hw, iters, pairs),
+    }
+    for corr_nlanes, (_, _, launches) in runs.items():
+        if device.type == "cuda" and launches != want[corr_nlanes]:
+            raise AssertionError(
+                f"nlanes: corr_nlanes={corr_nlanes} launched {launches} for {pairs} pairs, "
+                f"not {want[corr_nlanes]}"
+            )
+    diff = max(float((a - b).abs().max()) for a, b in zip(runs[True][0], runs[False][0]))
+    scale = max(float(f.abs().max()) for f in runs[False][0])
+    if not all(bool(f.isfinite().all()) for f in runs[True][0]) or diff > FLOW_NLANES_TOL:
+        raise AssertionError(f"nlanes: low-res flows differ from the default build by {diff} > {FLOW_NLANES_TOL}")
+    return {
+        "hw": list(hw), "iters": iters, "pairs": pairs, "dtype": "bfloat16",
+        "launches": runs[True][2], "launches_default": runs[False][2],
+        "max_abs_flow_low_diff_px": diff, "max_abs_flow_low_px": scale, "tol_px": FLOW_NLANES_TOL,
+        "ms_per_pair": float(np.mean(runs[True][1][1:])),
+        "ms_per_pair_default": float(np.mean(runs[False][1][1:])),
+        "pair_ms": runs[True][1], "pair_ms_default": runs[False][1],
+        **({"profile": profiles[True], "profile_default": profiles[False]} if profile else {}),
+    }
+
+
+def entry_points(device, hw=FULL_HW, iters=12, pairs=3) -> dict:
+    """The entry points of K3t, K2s and K4 on the flow net's own tensors
+    (the slices' weights and frames, bf16): per frame pair, the pyramid
+    of the two feature maps through ``build_pyramid_tiled`` (K3t, four
+    launches; level 0's f2 is the NHWC view of the encoder's NCHW
+    output) against ``build_corr_pyramid``; its row-padded copy looked
+    up through ``lookup_corr_pyramid_slab`` (K2s, one launch) at the
+    default flow net's final coordinates, against ``lookup_corr_pyramid``
+    (K2); and K1's probabilities of the pair's context read through
+    ``apply_attention_probs(use_pallas=True)`` (K4, one launch) with the
+    aggregator's values, against the default read."""
+    from atdn_vslam_torch.models.factory import build_flow_model
+    from atdn_vslam_torch.ops.attention import apply_attention_probs, attention_probs_spatial
+    from atdn_vslam_torch.ops.bilinear import coords_grid
+    from atdn_vslam_torch.ops.corr_dot_tiled import build_pyramid_tiled
+    from atdn_vslam_torch.ops.corr_lookup import build_corr_pyramid, lookup_corr_pyramid
+    from atdn_vslam_torch.ops.corr_lookup_slab import lookup_corr_pyramid_slab, pad_pyramid_for_slab
+
+    cfg = flow_config(os.devnull, hw, iters, bf16=True)
+    flow_sd, _ = seeded_weights(cfg, seed=0)
+    model = build_flow_model(cfg, device)
+    model.load_state_dict(flow_sd)
+    ims = [torch.from_numpy(f).to(device).float()[None] for f in synthetic_frames(pairs + 1, hw, seed=1)]
+    errs = {"corr_dot_tiled": 0.0, "corr_lookup_slab": 0.0, "apply_probs": 0.0}
+    counts = launches_of()
+    with torch.inference_mode():
+        for i in range(pairs):
+            low, _ = model(ims[i], ims[i + 1])
+            x1, x2 = model._prep(ims[i]), model._prep(ims[i + 1])
+            f1, f2 = (model.fnet(x).permute(0, 2, 3, 1) for x in (x1, x2))  # NHWC views
+            ctx = model.cnet(x1)
+            inp = torch.relu(ctx[:, model.hidden_dim:])
+            q, k = model.att(inp)
+            b, _, h8, w8 = inp.shape
+            v = model.update_block.aggregator.to_v(inp).reshape(b, -1, h8 * w8).transpose(1, 2)
+            probs = attention_probs_spatial(q, k, h8, w8, scale=1.0)
+            coords = coords_grid(h8, w8, device=device)[None] + low.float()
+            default = build_corr_pyramid(f1, f2, 4, dtype=model.dtype)
+
+            reset_launches()
+            tiled = build_pyramid_tiled(f1, f2, 4, model.dtype)
+            padded, rows = pad_pyramid_for_slab(default)
+            slab = lookup_corr_pyramid_slab(padded, coords, orig_rows=rows)
+            out = apply_attention_probs(probs, v, use_pallas=True)
+            for name, n in read_launches().items():
+                counts[name] += n
+
+            errs["corr_dot_tiled"] = max([errs["corr_dot_tiled"]] + [
+                check_close(f"entry_points: build_pyramid_tiled level {lv}", a, r, **K3_TOL)
+                for lv, (a, r) in enumerate(zip(tiled, default))
+            ])
+            errs["corr_lookup_slab"] = max(errs["corr_lookup_slab"], check_close(
+                "entry_points: lookup_corr_pyramid_slab", slab, lookup_corr_pyramid(default, coords), **K2S_TOL
+            ))
+            errs["apply_probs"] = max(errs["apply_probs"], check_close(
+                "entry_points: apply_attention_probs(use_pallas=True)", out,
+                apply_attention_probs(probs, v), **K4_TOL,
+            ))
+    want = launches_of(corr_dot_tiled=4 * pairs, corr_lookup_slab=pairs, apply_probs=pairs)
+    if device.type == "cuda" and counts != want:
+        raise AssertionError(f"entry_points: launched {counts} for {pairs} pairs, not {want}")
+    return {"hw": list(hw), "pairs": pairs, "launches": counts, "max_abs_err": errs,
+            "tolerance": {"corr_dot_tiled": K3_TOL, "corr_lookup_slab": K2S_TOL, "apply_probs": K4_TOL}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None, help="also write every phase's result to this JSON file")
     p.add_argument("--profile", type=int, default=0, metavar="N",
-                   help="after each slice, profile N more streaming steps with torch.profiler")
+                   help="after each slice and each build of the nlanes phase, profile N more "
+                        "streaming steps with torch.profiler")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -600,6 +982,8 @@ def main(argv=None) -> int:
     kernels = [k1_attention_probs(device), k2_corr_lookup(device)]
     kernels += [k5_flash_attend(device), k3_corr_dot(device)]
     torch.cuda.empty_cache()
+    kernels += [k2n_nlanes(device), k4_apply_probs(device), k2s_slab(device), k3t_corr_dot_tiled(device)]
+    torch.cuda.empty_cache()
     for k in kernels:
         emit("kernel", card=card, **k)
 
@@ -617,10 +1001,18 @@ def main(argv=None) -> int:
     emit("slice_2x", card=card, **results["slice_2x"])
     results["forced_streaming"] = forced_streaming(device)
     emit("forced_streaming", card=card, **results["forced_streaming"])
+    results["nlanes"] = nlanes(device, profile=args.profile)
+    emit("nlanes", card=card, **results["nlanes"])
+    results["entry_points"] = entry_points(device)
+    emit("entry_points", card=card, **results["entry_points"])
+    results["apply_probs_backward"] = k4_backward(device)
+    emit("apply_probs_backward", card=card, **results["apply_probs_backward"])
 
     # each kernel's launches from the run of the path that drives it
     driver = {"attention_probs": "slice", "corr_lookup": "slice",
-              "flash_attend": "slice_2x", "corr_dot": "forced_streaming"}
+              "flash_attend": "slice_2x", "corr_dot": "forced_streaming",
+              "corr_lookup_nlanes": "nlanes", "apply_probs": "entry_points",
+              "corr_lookup_slab": "entry_points", "corr_dot_tiled": "entry_points"}
     for k in kernels:
         k["launches_from"] = driver[k["name"]]
         k["launches"] = results[driver[k["name"]]]["launches"][k["name"]]

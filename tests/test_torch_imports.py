@@ -96,6 +96,30 @@ def test_kernel_wrappers_have_no_cpu_fallback_on_other_devices():
                             torch.empty((1, 2, 2, 2), device="meta"))
 
 
+def test_slice3_kernel_wrappers_have_no_cpu_fallback_on_other_devices():
+    """The same for K2n, K4, K2s and K3t."""
+    from atdn_vslam_torch.ops.attention import apply_attention_probs, flash_apply_probs
+    from atdn_vslam_torch.ops.corr_dot_tiled import corr_dot_tiled
+    from atdn_vslam_torch.ops.corr_lookup_nlanes import nlanes_lookup_levels
+    from atdn_vslam_torch.ops.corr_lookup_slab import lookup_corr_pyramid_slab
+
+    probs = torch.empty((1, 2, 2, 8), device="meta")
+    values = torch.empty((1, 4, 16), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        flash_apply_probs(probs, values)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        apply_attention_probs(probs, values, use_pallas=True)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        nlanes_lookup_levels([torch.empty((1, 2, 2, 4), device="meta")],
+                             torch.empty((1, 4, 2), device="meta"))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        lookup_corr_pyramid_slab([torch.empty((1, 4, 2, 2), device="meta")],
+                                 torch.empty((1, 2, 2, 2), device="meta"), orig_rows=(2,))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        corr_dot_tiled(torch.empty((1, 4, 16), device="meta"),
+                       torch.empty((1, 2, 2, 16), device="meta"), 0.25)
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     from atdn_vslam_torch.ops import _kernels
 
