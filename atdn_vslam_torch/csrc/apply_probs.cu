@@ -15,161 +15,195 @@
 // Bound on an H100 at the KITTI shape (M = 7238, K = 7296, Dv = 128,
 // bf16): P is 105.6 MB, read once, 31.5 us at 3.35 TB/s; the
 // 2 * M * K * Dv = 1.35e10 FLOP take 13.7 us at the bf16 peak: bound by
-// bytes. So the design streams P through shared memory with enough
-// bytes in flight and keeps the products on the tensor cores:
-//   - one block of four warps per 64 rows of P and all Dv (<= 128)
-//     columns; each warp owns 16 rows, their 16 x Dv float32
-//     accumulators in mma.sync m16n8k16 registers;
-//   - tiles of 64 keys of P (64 x 64) and v (64 x Dv) go through four
-//     cp.async stages in shared memory, three in flight while one is
-//     consumed (24 KB of P in flight per block);
-//   - P's fragments are 32-bit shared-memory loads; v stays row-major
-//     as it arrives and its fragments come from ldmatrix.trans, so
-//     nothing is transposed by hand.
-// 64-row blocks give 114 blocks at KITTI on the 132 SMs, one wave. A
-// smaller row tile would fill every SM but read v (1.87 MB) once per
-// block from L2: 114 blocks already read 213 MB of v from L2 against
-// the 105.6 MB of P from device memory, and 32-row blocks would double
-// that; splitting the keys across blocks needs a reduction between
-// them. Both are later work, with wgmma and TMA.
+// bytes. What the bf16 design does about it:
+//   - a tile is 128 rows of P and all Dv (<= 128) columns, taken by two
+//     consumer warpgroups of 64 rows, each a wgmma m64n128k16 chain
+//     with P (K-major) and v (MN-major, the transpose flag) both read
+//     from shared memory and the 64 x 128 float32 accumulator in
+//     registers. 128 rows read each 16 KB v tile once per 16 KB of P,
+//     so v's L2 reads equal P's device-memory bytes (64-row blocks read
+//     twice as much);
+//   - one producer warp keeps TMA loads in flight through six stages of
+//     64 keys (16 KB of P and 16 KB of v each): up to 80 KB of P in
+//     flight per SM, more than the ~40 KB that 3.35 TB/s over 132 SMs
+//     needs at device-memory latency; P is loaded with the evict-first
+//     L2 policy (read once);
+//   - 3-D tensor maps, (K, M, B) for P and (Dv, N_v, B) for v, so TMA's
+//     zero fill gives the contract: P's ragged last key tile, its rows
+//     past M and v's rows past N_v read as zero, and no box reaches into
+//     the next batch. Dv < 128 loads zero-filled columns that are never
+//     stored;
+//   - every SM is busy: the (tile, 64-key step) units are split evenly
+//     over `grid` blocks (grid = the SM count at KITTI, 57 tiles x 114
+//     steps over 132 blocks), each block taking a contiguous range of
+//     units. A tile that one block covers whole is written directly; a
+//     tile split between blocks has each segment's float32 partial sum
+//     written to a workspace, and the last segment to finish (a counter
+//     per tile and warpgroup, which it sets back to zero) adds all
+//     segments in the order of their keys and writes the tile: no float
+//     atomics, so the result is the same bit for bit from launch to
+//     launch.
 // float32 inputs take a plain-FMA kernel (one stage, 64 x 32 tiles).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
-constexpr int BM = 64;              // rows of P per block
-constexpr int BK = 64;              // keys per stage
-constexpr int STAGES = 4;
-constexpr int THREADS = 128;        // four warps
+constexpr int BM = 64;      // float32: rows of P per block
 constexpr int MAXDV = 128;
-constexpr int LDP = BK + 8;         // P tile row stride (elements)
-constexpr int LDV = MAXDV + 8;      // v tile row stride (elements)
-constexpr int STAGE_ELEMS = BM * LDP + BK * LDV;
-constexpr int SMEM_BYTES = STAGES * STAGE_ELEMS * (int)sizeof(bf16);
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int TM = 128;                         // bf16: rows of P per tile
+constexpr int TK = 64;                          // keys per stage: a 128-byte row of P
+constexpr int STAGES = 6;
+constexpr int P_TILE = TM * TK * 2;             // 16 KB
+constexpr int V_BOX = TK * 64 * 2;              // 8 KB: 64 keys x 64 values
+constexpr int STAGE_BYTES = P_TILE + 2 * V_BOX;
+constexpr int CONSUMERS = 256;                  // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;         // and one producer warp
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+constexpr int PART = 64 * 128;                  // floats of one warpgroup's partial tile
+
+// the block that takes unit x when `units` are split over `grid` blocks,
+// block i taking [i * units / grid, (i + 1) * units / grid)
+__device__ __forceinline__ int unit_block(long long x, long long units, int grid) {
+  return (int)(((x + 1) * grid + units - 1) / units - 1);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// the partial-sum slot of block i for `tile`: 0 for the tile its range
+// starts in, 1 for the tile it ends in; then the warpgroup's half
+__device__ __forceinline__ float* part_slot(float* ws, int i, int tile, long long units, int grid,
+                                            int kt, int wg) {
+  const int first = (int)((long long)i * units / grid / kt);
+  return ws + ((size_t)(2 * i + (tile == first ? 0 : 1)) * 2 + wg) * PART;
 }
 
-// four 8 x 8 bf16 matrices, transposed: lanes 8j .. 8j+7 give the row
-// addresses of matrix j, and register j of a lane holds (row 2t, col g)
-// and (row 2t + 1, col g) of matrix j (g = lane / 4, t = lane % 4)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// 16-byte asynchronous copy; with valid false the 16 bytes are zeroed
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// keys [k0, k0 + BK): P rows [row0, row0 + BM) and v rows; P's rows
-// >= m and columns >= kp, and v's rows >= nv, are zero-filled
-__device__ void load_stage(const bf16* __restrict__ p, const bf16* __restrict__ v, int m, int kp,
-                          int nv, int dv, int row0, int k0, bf16* s) {
-  bf16* ps = s;
-  bf16* vs = s + BM * LDP;
-  for (int i = threadIdx.x; i < BM * (BK / 8); i += THREADS) {
-    const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-    const bool ok = row0 + r < m && k0 + c < kp;
-    cp_async16(ps + r * LDP + c, ok ? p + (size_t)(row0 + r) * kp + k0 + c : p, ok);
-  }
-  const int vecs = dv / 8;
-  for (int i = threadIdx.x; i < BK * vecs; i += THREADS) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    const bool ok = k0 + r < nv;
-    cp_async16(vs + r * LDV + c, ok ? v + (size_t)(k0 + r) * dv + c : v, ok);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-apply_probs_bf16_kernel(const bf16* __restrict__ p, const bf16* __restrict__ v,
-                        bf16* __restrict__ out, int m, int kp, int nv, int dv) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int b = blockIdx.y, row0 = blockIdx.x * BM;
-  p += (size_t)b * m * kp;
-  v += (size_t)b * nv * dv;
-  out += (size_t)b * m * dv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  float acc[MAXDV / 8][4];
+// this warpgroup's 64 rows, from row0, of out (m, dv), from the
+// accumulator fragment (rows g and g + 8 of the warp's 16)
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[64], int row0,
+                                           int m, int dv) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = row0 + (threadIdx.x % 128) / 32 * 16 + g, r1 = r0 + 8;
 #pragma unroll
-  for (int j = 0; j < MAXDV / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-
-  const int tiles = (kp + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < tiles) load_stage(p, v, m, kp, nv, dv, row0, s * BK, smem + s * STAGE_ELEMS);
-    cp_async_commit();
-  }
-  // the lane's row address within an x4 ldmatrix of v: matrices
-  // (keys 0-7, cols 0-7), (keys 8-15, cols 0-7), (keys 0-7, cols 8-15),
-  // (keys 8-15, cols 8-15) give b0, b1 of two adjacent 8-column tiles
-  const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8, vcol = (lane >> 4) * 8;
-  for (int kt = 0; kt < tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt has landed; stage kt - 1 is consumed by all
-    const int nxt = kt + STAGES - 1;
-    if (nxt < tiles) load_stage(p, v, m, kp, nv, dv, row0, nxt * BK, smem + (nxt % STAGES) * STAGE_ELEMS);
-    cp_async_commit();
-
-    const bf16* ps = smem + (kt % STAGES) * STAGE_ELEMS;
-    const bf16* vs = ps + BM * LDP;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      const bf16* pa = ps + (warp * 16 + g) * LDP + kk + 2 * t;
-      const uint32_t a[4] = {ld32(pa), ld32(pa + 8 * LDP), ld32(pa + 8), ld32(pa + 8 * LDP + 8)};
-#pragma unroll
-      for (int j2 = 0; j2 < MAXDV / 16; ++j2) {
-        if (j2 * 16 < dv) {
-          uint32_t bfrag[4];
-          ldmatrix_x4_trans(bfrag, vs + (kk + vrow) * LDV + j2 * 16 + vcol);
-          mma_bf16(acc[2 * j2], a, bfrag[0], bfrag[1]);
-          mma_bf16(acc[2 * j2 + 1], a, bfrag[2], bfrag[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // rows g and g + 8 of the warp's 16, columns 8j + 2t and + 1
-  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int j = 0; j < MAXDV / 8; ++j) {
-    const int c = j * 8 + 2 * t;
+  for (int j = 0; j < 16; ++j) {
+    const int c = 8 * j + 2 * t;
     if (c < dv) {
       if (r0 < m)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r0 * dv + c) =
-            __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+        *reinterpret_cast<uint32_t*>(out + (size_t)r0 * dv + c) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
       if (r1 < m)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r1 * dv + c) =
-            __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+        *reinterpret_cast<uint32_t*>(out + (size_t)r1 * dv + c) =
+            pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
     }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+apply_probs_bf16_kernel(const __grid_constant__ CUtensorMap map_p,
+                        const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+                        float* __restrict__ ws, int* __restrict__ counters, int m, int dv,
+                        int row_tiles, int kt, long long units) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int last[2];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int grid = gridDim.x, blk = blockIdx.x;
+  const long long u0 = (long long)blk * units / grid, u1 = (long long)(blk + 1) * units / grid;
+
+  if (threadIdx.x >= CONSUMERS) {
+    // producer: one thread walks the block's units through the ring
+    if (threadIdx.x == CONSUMERS) {
+      int i = 0;
+      for (long long u = u0; u < u1; ++u, ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        const int tile = (int)(u / kt), k0 = (int)(u % kt) * TK;
+        const int b = tile / row_tiles, row0 = (tile % row_tiles) * TM;
+        unsigned char* st = smem + s * STAGE_BYTES;
+        mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        tma_load_3d_hint(st, &map_p, &full[s], k0, row0, b, EVICT_FIRST);
+        tma_load_3d(st + P_TILE, &map_v, &full[s], 0, k0, b);
+        tma_load_3d(st + P_TILE + V_BOX, &map_v, &full[s], 64, k0, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 of each tile
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  float acc[64];
+  int i = 0;
+  long long u = u0;
+  while (u < u1) {
+    const int tile = (int)(u / kt);
+    const long long t0 = (long long)tile * kt, t1 = t0 + kt;
+    const long long end = t1 < u1 ? t1 : u1;
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc[r] = 0.0f;
+    int prev = 0;
+    for (; u < end; ++u, ++i) {
+      const int s = i % STAGES;
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      const unsigned char* st = smem + s * STAGE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        const uint64_t da = desc_sw128(st + wg * (P_TILE / 2) + kk * 32, 16, 1024);
+        const uint64_t db = desc_sw128(st + P_TILE + kk * 16 * 128, V_BOX, 1024);
+        wgmma_m64n128k16_ss<1>(acc, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous unit's products are done: free its stage
+      if (u > t0 && u > u0) mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[prev]);
+
+    const int b = tile / row_tiles, row0 = (tile % row_tiles) * TM + wg * 64;
+    bf16* ob = out + (size_t)b * m * dv;
+    if (t0 >= u0 && t1 <= u1) {  // the whole tile
+      store_rows(ob, acc, row0, m, dv);
+      continue;
+    }
+    // one segment of a tile split between blocks
+    float4* mine = reinterpret_cast<float4*>(part_slot(ws, blk, tile, units, grid, kt, wg));
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      __stcg(mine + e * 128 + tid, make_float4(acc[4 * e], acc[4 * e + 1], acc[4 * e + 2], acc[4 * e + 3]));
+    __threadfence();
+    named_bar_sync(1 + wg, 128);
+    const int bf = unit_block(t0, units, grid), bl = unit_block(t1 - 1, units, grid);
+    if (tid == 0) last[wg] = atomicAdd(&counters[2 * tile + wg], 1) == bl - bf;
+    named_bar_sync(1 + wg, 128);
+    if (!last[wg]) continue;
+    __threadfence();
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc[r] = 0.0f;
+    for (int i2 = bf; i2 <= bl; ++i2) {  // every segment, this one too, in the order of its keys
+      const float4* src = reinterpret_cast<const float4*>(part_slot(ws, i2, tile, units, grid, kt, wg));
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const float4 x = __ldcg(src + e * 128 + tid);
+        acc[4 * e] += x.x;
+        acc[4 * e + 1] += x.y;
+        acc[4 * e + 2] += x.z;
+        acc[4 * e + 3] += x.w;
+      }
+    }
+    store_rows(ob, acc, row0, m, dv);
+    if (tid == 0) counters[2 * tile + wg] = 0;  // zero again for the next launch
   }
 }
 
@@ -233,27 +267,40 @@ apply_probs_f32_kernel(const float* __restrict__ p, const float* __restrict__ v,
 // p (b, m, kp) contiguous, 16-byte aligned, kp a multiple of 8; v
 // (b, nv, dv) contiguous, 16-byte aligned, nv <= kp, dv a multiple of
 // 16 up to 128; out (b, m, dv) contiguous; all bf16 (is_bf16 = 1) or
-// all float32. Returns a cudaError_t (0 on success).
-extern "C" int atdn_apply_probs(const void* p, const void* v, void* out, int b, int m, int kp,
-                                int nv, int dv, int is_bf16, int device, void* stream) {
+// all float32. bf16 only: `grid` blocks, 1 <= grid <= the number of
+// (128-row tile, 64-key step) units; ws holds 4 * grid * 64 * 128
+// floats; counters 2 * b * ceil(m / 128) ints, zero (and zero again
+// when the kernel ends). Returns a
+// cudaError_t (0 on success), or hopper::TENSOR_MAP_ERROR + a CUresult.
+extern "C" int atdn_apply_probs(const void* p, const void* v, void* out, void* ws, void* counters,
+                                int b, int m, int kp, int nv, int dv, int grid, int is_bf16,
+                                int device, void* stream) {
   if (b < 1 || b > 65535 || m < 1 || kp < 1 || kp % 8 || nv < 1 || nv > kp || dv < 16 ||
       dv > MAXDV || dv % 16)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)b);
   if (is_bf16) {
-    err = cudaFuncSetAttribute(apply_probs_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    const int row_tiles = (m + TM - 1) / TM, kt = (kp + TK - 1) / TK;
+    const long long units = (long long)b * row_tiles * kt;
+    if (grid < 1 || grid > units || ws == nullptr || counters == nullptr)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap map_p, map_v;
+    int e = encode_bf16_3d(&map_p, p, kp, m, b, TK, TM);
+    if (e == 0) e = encode_bf16_3d(&map_v, v, dv, nv, b, 64, TK);
+    if (e != 0) return e;
+    err = cudaFuncSetAttribute(apply_probs_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     apply_probs_bf16_kernel<<<grid, THREADS, SMEM_BYTES, st>>>(
-        static_cast<const bf16*>(p), static_cast<const bf16*>(v), static_cast<bf16*>(out), m, kp,
-        nv, dv);
+        map_p, map_v, static_cast<bf16*>(out), static_cast<float*>(ws), static_cast<int*>(counters),
+        m, dv, row_tiles, kt, units);
   } else {
-    apply_probs_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(p),
-                                                 static_cast<const float*>(v),
-                                                 static_cast<float*>(out), m, kp, nv, dv);
+    const dim3 fgrid((unsigned)((m + BM - 1) / BM), (unsigned)b);
+    apply_probs_f32_kernel<<<fgrid, 256, 0, st>>>(static_cast<const float*>(p),
+                                                  static_cast<const float*>(v),
+                                                  static_cast<float*>(out), m, kp, nv, dv);
   }
   return (int)cudaGetLastError();
 }

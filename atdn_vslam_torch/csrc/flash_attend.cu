@@ -9,63 +9,56 @@
 // Bound on an H100 at the 2x KITTI shape (B = 1, Nq = Nk = 28952,
 // D = Dv = 128, bf16): 4 * Nq * Nk * D = 4.29e11 FLOP, 0.434 ms at the
 // bf16 tensor-core peak, against 4 x 7.4 MB of q, k, v and out (8.8 us
-// at 3.35 TB/s). The kernel is bound by operations, so both products
-// run on the tensor cores and nothing else touches device memory:
-//   - one block of four warps per 64 query rows; each warp owns 16 rows
-//     for the whole key loop (the TPU's sequential key grid becomes this
-//     loop), with the running max m, the running sum l and the 16 x Dv
-//     float32 accumulator in registers, laid out as mma.sync m16n8k16
-//     fragments;
-//   - tiles of 64 keys and values are staged in shared memory (v stored
-//     transposed, so each value fragment is one 32-bit load);
-//   - s = q k^T and acc += p v are mma.sync bf16 products with float32
-//     accumulation; the score accumulators are re-packed in registers as
-//     the A fragments of p v, with p cast to v's type first as the TPU
-//     kernel does (:98), so p never goes through shared memory.
-// Key columns >= Nk are masked to -1e30 (not -inf: a fully masked tile
-// would give exp(-inf + inf) = NaN), ragged rows load as zeros, and no
-// row >= Nq is written. Grid: 64-row blocks give 453 blocks at 2x KITTI
-// (about 1.1 waves at the three blocks an SM holds) and 114 at KITTI
-// size, fewer than the 132 SMs; larger blocks would cut the 453 to 227
-// and leave a worse tail. float32 inputs take a plain-FMA kernel with
-// the same loop (the GPU-vs-CPU agreement runs the model in float32).
-// cp.async staging, ldmatrix, wgmma and TMA are later work.
+// at 3.35 TB/s): bound by operations. A second floor is the softmax's
+// 8.4e8 exponentials, ~0.2 ms at 16 per clock per SM, so the softmax has
+// to run while the tensor cores work, not between their products. The
+// bf16 design (FlashAttention-3's forward, written with raw PTX):
+//   - one block per 128 query rows: two consumer warpgroups of 64 rows
+//     and one producer warpgroup. setmaxnreg moves registers from the
+//     producer (24) to the consumers (240), which keep S (64 x 128),
+//     the output accumulator (64 x 128, float32) and P (bf16) in
+//     registers;
+//   - q is loaded once by TMA (two 64-column boxes, 32 KB); k and v
+//     tiles of 128 keys (32 KB each) go through a ring of two stages,
+//     filled by one producer thread, with a full and an empty mbarrier
+//     per stage and operand, so a stage of k is refilled as soon as its
+//     scores are computed;
+//   - S = q k^T is a wgmma with both operands K-major in shared memory
+//     (128-byte swizzle). P = 2^(S scale log2(e) - m), cast to v's type
+//     as the TPU kernel does (:98), stays in registers as wgmma's A
+//     operand: the accumulator layout of m64n128k16 is the A layout of
+//     the next product, so no shuffle is needed. v arrives row-major
+//     (keys x values), read as an MN-major B with the transpose flag;
+//     nothing is transposed by hand;
+//   - within a warpgroup, the scores of tile j are issued together with
+//     P V of tile j - 1, and the softmax of tile j runs while P V is on
+//     the tensor cores; between the two warpgroups, named barriers hand
+//     the tensor cores back and forth (ping-pong), so one group's
+//     softmax overlaps the other group's products;
+//   - only the last key tile is masked: keys at or past Nk score -1e30
+//     (the TPU kernel's mask value, not -inf), so p = 0; 3-D tensor maps zero-fill
+//     ragged rows, D and Dv below 128 (zero columns never stored) and
+//     never read into the next batch; no row >= Nq is written; the row
+//     sum l is float32 over the unrounded p.
+// Grid at 2x KITTI: 227 blocks of 128 rows on 132 SMs, one block per SM
+// (164 KB of shared memory), so the second wave is 72% full; a split of
+// the keys between blocks is not done. float32 inputs take a plain-FMA
+// kernel with 64-row blocks (the GPU-vs-CPU agreement runs the model in
+// float32).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
-constexpr int BM = 64;         // query rows per block, 16 per warp
-constexpr int BN = 64;         // keys per tile (bf16)
+constexpr int BM = 64;         // float32: query rows per block, 16 per warp
 constexpr int FBN = 32;        // keys per tile (float32)
-constexpr int THREADS = 128;   // four warps
+constexpr int THREADS = 128;   // float32: four warps
 constexpr int MAXD = 128;      // D and Dv up to 128, multiples of 16
-constexpr int PAD = 8;         // bf16 shared-memory row padding (elements)
 constexpr int FPAD = 4;        // float32 shared-memory row padding
 constexpr float NEG = -1e30f;  // the TPU kernel's mask value
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a b, a 16x16 (row), b 16x8 (col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // rows [row0, row0 + rows) of a row-major (n, d) matrix into shared
 // memory with row stride d + pad, 16 bytes per thread; rows >= n are zero
@@ -83,148 +76,229 @@ __device__ void load_rows(const T* __restrict__ g, int n, int d, int row0, int r
   }
 }
 
-// rows [row0, row0 + BN) of the row-major (n, dv) bf16 values, stored
-// transposed: vt[c * (BN + PAD) + r]; rows >= n are zero. Consecutive
-// threads take consecutive rows, so their 2-byte stores share banks
-// only pairwise.
-__device__ void load_rows_t(const bf16* __restrict__ g, int n, int dv, int row0, bf16* vt) {
-  const int vecs = dv / 8;
-  for (int i = threadIdx.x; i < BN * vecs; i += THREADS) {
-    const int r = i % BN, c = (i / BN) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) v = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * dv + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
+constexpr int QM = 128;                   // bf16: query rows per block
+constexpr int KN = 128;                   // keys per stage
+constexpr int KSTAGES = 2;
+constexpr int BOX = 128 * 64 * 2;         // one TMA box: 128 rows x 64 columns, 16 KB
+constexpr int TILE = 2 * BOX;             // 128 rows x 128 columns (D or Dv)
+constexpr int FLASH_THREADS = 384;        // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr int FLASH_SMEM = 1024 + (1 + 2 * KSTAGES) * TILE + (1 + 4 * KSTAGES) * 8;
+constexpr int TURN = 1;                   // named barriers TURN + wg: warpgroup wg's turn
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = q k^T: the warpgroup's 64 query rows (q) against the 128 keys of
+// a stage (k), both as two 64-column boxes
+__device__ __forceinline__ void qk_product(float (&s)[64], const unsigned char* q,
+                                           const unsigned char* k) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) vt[(c + j) * (BN + PAD) + r] = e[j];
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t da = desc_sw128(q + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = desc_sw128(k + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024);
+    wgmma_m64n128k16_ss<0>(s, da, db, kk > 0);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out, int nq, int nk, int d,
-                  int dv, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldq = d + PAD, ldv = BN + PAD;
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // BM x ldq
-  bf16* ks = qs + BM * ldq;                  // BN x ldq
-  bf16* vt = ks + BN * ldq;                  // dv x ldv
-  const int b = blockIdx.y, row0 = blockIdx.x * BM;
-  q += (size_t)b * nq * d;
-  k += (size_t)b * nk * d;
-  v += (size_t)b * nk * dv;
-  out += (size_t)b * nq * dv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group and column pair
-  const bf16* qw = qs + warp * 16 * ldq;
-
-  load_rows(q, nq, d, row0, BM, PAD, qs);
-
-  // this thread's rows of the warp's 16: g (fragment slots 0, 1) and
-  // g + 8 (slots 2, 3)
-  float acc[MAXD / 8][4];
+// o += P v: P the warpgroup's 64 x 128 probabilities as bf16 pairs
+// (p[4 kc .. 4 kc + 3] for keys 16 kc .. 16 kc + 15), v a stage of 128
+// keys x 128 values
+__device__ __forceinline__ void pv_product(float (&o)[64], const uint32_t (&p)[32],
+                                           const unsigned char* v) {
 #pragma unroll
-  for (int j = 0; j < MAXD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-  float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
-
-  for (int col0 = 0; col0 < nk; col0 += BN) {
-    __syncthreads();  // the previous tile is consumed
-    load_rows(k, nk, d, col0, BN, PAD, ks);
-    load_rows_t(v, nk, dv, col0, vt);
-    __syncthreads();
-
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < MAXD; kk += 16) {
-      if (kk < d) {
-        const bf16* qa = qw + g * ldq + kk + 2 * t;
-        const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * ldq);
-        const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * ldq + 8);
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const bf16* kb = ks + (j * 8 + g) * ldq + kk + 2 * t;
-          mma_bf16(s[j], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
-        }
-      }
-    }
-
-    // scale, mask, and the online softmax of rows g and g + 8
-    float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = col0 + j * 8 + 2 * t + e < nk;
-        s[j][e] = ok ? s[j][e] * scale : NEG;
-        s[j][2 + e] = ok ? s[j][2 + e] * scale : NEG;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-    }
-    // the four lanes of a row group hold one row between them
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);
-    float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = __expf(s[j][e] - mn0);
-        s[j][2 + e] = __expf(s[j][2 + e] - mn1);
-        sum0 += s[j][e];
-        sum1 += s[j][2 + e];
-      }
-    }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-    l0 = c0 * l0 + sum0;
-    l1 = c1 * l1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-
-    // acc = acc * correction + p v, p in bf16: the accumulators of two
-    // adjacent 8-key score tiles are the A fragment of one 16-key step
-#pragma unroll
-    for (int j = 0; j < MAXD / 8; ++j) {
-      acc[j][0] *= c0;
-      acc[j][1] *= c0;
-      acc[j][2] *= c1;
-      acc[j][3] *= c1;
-    }
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      const uint32_t a0 = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int j = 0; j < MAXD / 8; ++j) {
-        if (j * 8 < dv) {
-          const bf16* vb = vt + (j * 8 + g) * ldv + kc * 16 + 2 * t;
-          mma_bf16(acc[j], a0, a1, a2, a3, ld32(vb), ld32(vb + 8));
-        }
-      }
-    }
+  for (int kc = 0; kc < 8; ++kc) {
+    const uint64_t db = desc_sw128(v + kc * 16 * 128, BOX, 1024);
+    wgmma_m64n128k16_rs<1>(o, p[4 * kc], p[4 * kc + 1], p[4 * kc + 2], p[4 * kc + 3], db, 1);
   }
+}
 
-  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+// online softmax of one tile of scores for the thread's rows g and g + 8
+// (registers i with bit 1 clear, set): s becomes p = 2^(c s - m), m the
+// running row max of c s; l takes the tile's row sums; corr is the
+// factor that rescales the accumulator to the new max. With MASK, keys
+// at or past `valid` score NEG, so p = 0.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float c, int valid) {
+  const int t = threadIdx.x % 4;
+  float mx[2] = {NEG, NEG};
 #pragma unroll
-  for (int j = 0; j < MAXD / 8; ++j) {
-    if (j * 8 < dv) {
-      const int col = j * 8 + 2 * t;
-      if (r0 < nq)
-        *reinterpret_cast<uint32_t*>(out + (size_t)r0 * dv + col) =
-            pack_bf16(acc[j][0] / l0, acc[j][1] / l0);
-      if (r1 < nq)
-        *reinterpret_cast<uint32_t*>(out + (size_t)r1 * dv + col) =
-            pack_bf16(acc[j][2] / l1, acc[j][3] / l1);
+  for (int i = 0; i < 64; ++i) {
+    float x = s[i] * c;
+    if (MASK && 8 * (i >> 2) + 2 * t + (i & 1) >= valid) x = NEG;
+    s[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the four lanes of a row group hold one row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);
+    corr[r] = ex2(m[r] - mn);
+    m[r] = mn;
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float p = ex2(s[i] - m[(i >> 1) & 1]);
+    s[i] = p;
+    sum[(i >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = l[r] * corr[r] + sum[r];
+  }
+}
+
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float c, int valid, bool mask) {
+  if (mask)
+    softmax_tile<true>(s, m, l, corr, c, valid);
+  else
+    softmax_tile<false>(s, m, l, corr, c, valid);
+}
+
+__global__ void __launch_bounds__(FLASH_THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out, int nq,
+                  int nk, int dv, float c) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);  // q, then the k stages, then the v stages
+  unsigned char* ks = qs + TILE;
+  unsigned char* vs = ks + KSTAGES * TILE;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + KSTAGES * TILE);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + KSTAGES;
+  uint64_t* empty_k = full_v + KSTAGES;
+  uint64_t* empty_v = empty_k + KSTAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < KSTAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 256);
+      mbar_init(&empty_v[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int row0 = blockIdx.x * QM, b = blockIdx.y;
+  const int tiles = (nk + KN - 1) / KN;
+  // the warpgroup, read through a shuffle so that the compiler sees it is
+  // uniform in each warp: the roles then take their setmaxnreg budgets
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (wg == 2) {
+    // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(full_q, TILE);
+      tma_load_3d(qs, &map_q, full_q, 0, row0, b);
+      tma_load_3d(qs + BOX, &map_q, full_q, 64, row0, b);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % KSTAGES;
+        const uint32_t free_parity = ((j / KSTAGES) & 1) ^ 1;
+        unsigned char* kt = ks + s * TILE;
+        unsigned char* vt = vs + s * TILE;
+        mbar_wait(&empty_k[s], free_parity);
+        mbar_arrive_expect_tx(&full_k[s], TILE);
+        tma_load_3d(kt, &map_k, &full_k[s], 0, j * KN, b);
+        tma_load_3d(kt + BOX, &map_k, &full_k[s], 64, j * KN, b);
+        mbar_wait(&empty_v[s], free_parity);
+        mbar_arrive_expect_tx(&full_v[s], TILE);
+        tma_load_3d(vt, &map_v, &full_v[s], 0, j * KN, b);
+        tma_load_3d(vt + BOX, &map_v, &full_v[s], 64, j * KN, b);
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows row0 + 64 wg .. + 63
+    setmaxnreg_inc<240>();
+    const unsigned char* qw = qs + wg * (BOX / 2);
+    const int last_valid = nk - (tiles - 1) * KN;  // keys in the last tile
+    float o[64], s[64], m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f}, corr[2];
+    uint32_t p[32];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+    // the turns alternate between the warpgroups, warpgroup 0 first
+    if (wg == 1) named_bar_arrive(TURN, 256);
+    mbar_wait(full_q, 0);
+
+    // tile 0: its scores and softmax
+    named_bar_sync(TURN + wg, 256);
+    mbar_wait(&full_k[0], 0);
+    wgmma_fence();
+    qk_product(s, qw, ks);
+    wgmma_commit();
+    named_bar_arrive(TURN + 1 - wg, 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    mbar_arrive(&empty_k[0]);
+    softmax_tile(s, m, l, corr, c, last_valid, tiles == 1 && last_valid < KN);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+
+    for (int j = 1; j < tiles; ++j) {
+      // scores of tile j and P v of tile j - 1 on the tensor cores ...
+      const int sk = j % KSTAGES, sv = (j - 1) % KSTAGES;
+      named_bar_sync(TURN + wg, 256);
+      mbar_wait(&full_k[sk], (j / KSTAGES) & 1);
+      wgmma_fence();
+      qk_product(s, qw, ks + sk * TILE);
+      wgmma_commit();
+      mbar_wait(&full_v[sv], ((j - 1) / KSTAGES) & 1);
+      pv_product(o, p, vs + sv * TILE);
+      wgmma_commit();
+      named_bar_arrive(TURN + 1 - wg, 256);
+      // ... the softmax of tile j while P v runs
+      wgmma_wait<1>();
+      fence_regs(s);
+      mbar_arrive(&empty_k[sk]);
+      softmax_tile(s, m, l, corr, c, last_valid, j == tiles - 1 && last_valid < KN);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      mbar_arrive(&empty_v[sv]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    }
+
+    // P v of the last tile
+    const int sv = (tiles - 1) % KSTAGES;
+    named_bar_sync(TURN + wg, 256);
+    mbar_wait(&full_v[sv], ((tiles - 1) / KSTAGES) & 1);
+    wgmma_fence();
+    pv_product(o, p, vs + sv * TILE);
+    wgmma_commit();
+    if (wg == 0) named_bar_arrive(TURN + 1, 256);
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&empty_v[sv]);
+
+    // rows g and g + 8 of the warp's 16, columns 8j + 2t and + 1
+    const int tid = threadIdx.x % 128, g = (tid % 32) / 4, t = tid % 4;
+    const int r0 = row0 + wg * 64 + tid / 32 * 16 + g, r1 = r0 + 8;
+    const float inv0 = __frcp_rn(l[0]), inv1 = __frcp_rn(l[1]);
+    out += (size_t)b * nq * dv;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < dv) {
+        if (r0 < nq)
+          *reinterpret_cast<uint32_t*>(out + (size_t)r0 * dv + col) =
+              pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        if (r1 < nq)
+          *reinterpret_cast<uint32_t*>(out + (size_t)r1 * dv + col) =
+              pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
     }
   }
 }
@@ -340,7 +414,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // q (b, nq, d), k (b, nk, d), v (b, nk, dv), out (b, nq, dv), all
 // contiguous with 16-byte aligned starts, all bf16 (is_bf16 = 1) or all
 // float32. Requires d and dv multiples of 16 in [16, 128]. Returns a
-// cudaError_t (0 on success).
+// cudaError_t (0 on success), or hopper::TENSOR_MAP_ERROR + a CUresult.
 extern "C" int atdn_flash_attend(const void* q, const void* k, const void* v, void* out, int b,
                                  int nq, int nk, int d, int dv, float scale, int is_bf16,
                                  int device, void* stream) {
@@ -350,15 +424,20 @@ extern "C" int atdn_flash_attend(const void* q, const void* k, const void* v, vo
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((nq + BM - 1) / BM, b);
   if (is_bf16) {
-    const int smem = ((BM + BN) * (d + PAD) + dv * (BN + PAD)) * (int)sizeof(bf16);
-    err = cudaFuncSetAttribute(flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    CUtensorMap map_q, map_k, map_v;
+    int e = encode_bf16_3d(&map_q, q, d, nq, b, 64, QM);
+    if (e == 0) e = encode_bf16_3d(&map_k, k, d, nk, b, 64, KN);
+    if (e == 0) e = encode_bf16_3d(&map_v, v, dv, nk, b, 64, KN);
+    if (e != 0) return e;
+    err = cudaFuncSetAttribute(flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               FLASH_SMEM);
     if (err != cudaSuccess) return (int)err;
-    flash_bf16_kernel<<<grid, THREADS, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), nq, nk, d, dv, scale);
+    const dim3 grid((nq + QM - 1) / QM, b);
+    flash_bf16_kernel<<<grid, FLASH_THREADS, FLASH_SMEM, st>>>(
+        map_q, map_k, map_v, static_cast<bf16*>(out), nq, nk, dv, scale * LOG2E);
   } else {
+    const dim3 grid((nq + BM - 1) / BM, b);
     const int smem =
         ((BM + FBN) * (d + FPAD) + FBN * (dv + FPAD) + BM * (FBN + 1)) * (int)sizeof(float);
     err = cudaFuncSetAttribute(flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

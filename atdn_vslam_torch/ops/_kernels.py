@@ -56,8 +56,8 @@ _SIGNATURES = {
         "atdn_corr_lookup_nlanes": (_P,) * 6 + (_I,) * 8 + (_I,) * 7 + (_P,),
     },
     "apply_probs": {
-        # p, v, out, b, m, kp, nv, dv, is_bf16, device, stream
-        "atdn_apply_probs": (_P,) * 3 + (_I,) * 7 + (_P,),
+        # p, v, out, ws, counters, b, m, kp, nv, dv, grid, is_bf16, device, stream
+        "atdn_apply_probs": (_P,) * 5 + (_I,) * 8 + (_P,),
     },
     "corr_lookup_slab": {
         # vol0..3, coords, out, hp0..3, w0..3, b, n, levels, radius, is_bf16, device, stream

@@ -122,6 +122,40 @@ def flash_apply_probs_plain(probs: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return out.to(v.dtype).reshape(b, h, w, -1)
 
 
+#: K4's bf16 kernel: rows of P per tile, keys per pipeline stage, and the
+#: floats of one block's partial sums (two tiles it may share with other
+#: blocks, two warpgroups of 64 rows x 128 values each)
+_APPLY_ROWS, _APPLY_KEYS, _APPLY_PARTIALS = 128, 64, 4 * 64 * 128
+
+
+def _apply_probs_split(b: int, m: int, k: int, sms: int) -> tuple[int, int]:
+    """(blocks, tiles) of K4's bf16 kernel for P of shape (b, m, k) on a
+    card with ``sms`` SMs. Its units of work are the (128-row tile,
+    64-key step) pairs, ``tiles * ceil(k / 64)`` of them; block i of
+    ``blocks`` takes units [i * units // blocks, (i + 1) * units //
+    blocks), so each SM gets one block however few tiles there are, and
+    a tile may be split between blocks (the kernel adds the segments in
+    the order of their keys)."""
+    tiles = b * -(-m // _APPLY_ROWS)
+    units = tiles * -(-k // _APPLY_KEYS)
+    return min(sms, units), tiles
+
+
+#: K4's per-tile counters, by (device, stream): zero between launches
+#: (the kernel zeroes each counter it used), so launches on one stream
+#: share them without a memset
+_apply_probs_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _apply_probs_counters_for(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    key = (device.index or 0, stream)
+    counters = _apply_probs_counters.get(key)
+    if counters is None or counters.shape[0] < tiles:
+        counters = torch.zeros((tiles, 2), dtype=torch.int32, device=device)
+        _apply_probs_counters[key] = counters
+    return counters
+
+
 def _apply_probs_kernel(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if probs.device.type == "cpu":
         return flash_apply_probs_plain(probs, v)
@@ -143,10 +177,18 @@ def _apply_probs_kernel(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         )
     probs, v = _kernels.aligned(probs), _kernels.aligned(v)
     out = torch.empty((b, h, w, dv), dtype=v.dtype, device=v.device)
+    is_bf16 = v.dtype == torch.bfloat16
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    grid, ws, counters = 0, None, None
+    if is_bf16:  # the key split's partial sums and per-tile counters
+        sms = torch.cuda.get_device_properties(v.device).multi_processor_count
+        grid, tiles = _apply_probs_split(b, h * w, n, sms)
+        ws = torch.empty((grid, _APPLY_PARTIALS), dtype=torch.float32, device=v.device)
+        counters = _apply_probs_counters_for(v.device, stream, tiles)
     status = _kernels.library("apply_probs").atdn_apply_probs(
-        probs.data_ptr(), v.data_ptr(), out.data_ptr(), b, h * w, n, n_v, dv,
-        int(v.dtype == torch.bfloat16), v.device.index or 0,
-        torch.cuda.current_stream(v.device).cuda_stream,
+        probs.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in (ws, counters)),
+        b, h * w, n, n_v, dv, grid, int(is_bf16), v.device.index or 0, stream,
     )
     _kernels.check(status, "apply_probs kernel")
     flash_apply_probs.launches += 1

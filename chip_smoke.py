@@ -12,7 +12,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      shapes its path gives it (K1, K2: KITTI 376x1232 -> 47x154 = 7238
      tokens; K5, K3: 2x KITTI 752x2464 -> 94x308 = 28952 tokens), with
      its time, the plain version's, one library call's and the least
-     time the card could take (the bound);
+     time the card could take (the bound); K5 and K4 also on a ragged
+     batch of two, with their design and the registers and spills that
+     ptxas reported;
   4. agreement: the streaming runtime on the GPU (float32, kernels) and
      on the CPU (float32, plain versions) give the same poses on a
      small input, and ``RAFTGMA(use_pallas=True)`` (K3, K5) the same
@@ -136,6 +138,30 @@ def bound(bytes_moved: float, flops: float, dtype: torch.dtype) -> tuple[float, 
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_report(source: str, kernel: str) -> dict:
+    """What ``nvcc -Xptxas -v`` reported for the kernel of ``source``
+    whose (mangled) name contains ``kernel``: registers, stack, spill
+    stores and loads, and any warning that names wgmma or setmaxnreg."""
+    from atdn_vslam_torch.ops import _kernels
+
+    path = _kernels.BUILD_DIR / f"{source}.ptxas.txt"
+    if not path.exists():  # nothing built here (a rehearsal on the CPU)
+        return {}
+    out, current = {"warnings": []}, None
+    log = path.read_text().splitlines()
+    for line in log:
+        if "Compiling entry function" in line:
+            current = kernel in line
+        elif "wgmma" in line or "setmaxnreg" in line:
+            out["warnings"].append(line.strip())
+        elif current and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out["stack_bytes"], out["spill_store_bytes"], out["spill_load_bytes"] = nums[:3]
+        elif current and "Used" in line and "registers" in line:
+            out["registers"] = int(line.split("Used")[1].split()[0])
+    return out
 
 
 def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float) -> float:
@@ -301,6 +327,13 @@ def k5_flash_attend(device, n=94 * 308, d=128, seed=5) -> dict:
         "flash_attend (rectangular)", flash_attend(q[:, :nq], k[:, :nk], v[:, :nk], 1.0),
         flash_attend_plain(q[:, :nq], k[:, :nk], v[:, :nk], 1.0), **K5_TOL,
     )
+    # batch 2, ragged: 3001 queries and 4097 keys each (a last key tile
+    # of one key); a box reaching past a batch's rows would read the next
+    nq2, nk2 = min(3001, n // 2), min(4097, n // 2)
+    q2, k2, v2 = (x[0, : 2 * r].reshape(2, r, d) for x, r in ((q, nq2), (k, nk2), (v, nk2)))
+    batch2 = check_close(
+        "flash_attend (batch 2)", flash_attend(q2, k2, v2, 1.0), flash_attend_plain(q2, k2, v2, 1.0), **K5_TOL,
+    )
     qf, kf, vf = (x[:, :7238].float() for x in (q, k, v))
     f32 = check_close(
         "flash_attend (float32)", flash_attend(qf, kf, vf, 1.0),
@@ -316,7 +349,11 @@ def k5_flash_attend(device, n=94 * 308, d=128, seed=5) -> dict:
         "shape": [1, n, d], "dtype": "torch.bfloat16", "tolerance": K5_TOL,
         "max_abs_err": max_err,
         "rectangular": {"nq": nq, "nk": nk, "max_abs_err": rect},
+        "batch2": {"nq": nq2, "nk": nk2, "max_abs_err": batch2},
         "float32": {"n": 7238, "max_abs_err": f32, "tolerance": K5_F32_TOL},
+        "design": "tma+wgmma, 2 consumer WG x 64 rows + producer WG (setmaxnreg 24/240), "
+                  "128-key k/v tiles in 2 stages, ping-pong",
+        "ptxas": ptxas_report("flash_attend", "flash_bf16_kernel"),
         "ms": time_ms(lambda: flash_attend(q, k, v, 1.0), device),
         "plain_ms": time_ms(lambda: flash_attend_plain(q, k, v, 1.0), device, reps=5),
         # the yardstick only, the port never calls it; (B, heads, N, D)
@@ -427,6 +464,14 @@ def k4_apply_probs(device, hw8=(47, 154), d=128, seed=8) -> dict:
     n, n_pad = v.shape[1], probs.shape[-1]
     got = flash_apply_probs(probs, v)
     max_err = check_close("apply_probs", got, flash_apply_probs_plain(probs, v), **K4_TOL)
+    # batch 2, ragged: 3001 rows of P and 3500 rows of v each; a box
+    # reaching past a batch's rows would read the next batch's
+    rows2, nv2 = min(3001, n // 2), min(3500, n // 2)
+    p_b2 = probs.reshape(n, n_pad)[: 2 * rows2].reshape(2, 1, rows2, n_pad)
+    v_b2 = v[0, : 2 * nv2].reshape(2, nv2, d)
+    batch2 = check_close(
+        "apply_probs (batch 2)", flash_apply_probs(p_b2, v_b2), flash_apply_probs_plain(p_b2, v_b2), **K4_TOL,
+    )
     p2 = probs.reshape(1, n, n_pad)
     v_pad = F.pad(v, (0, 0, 0, n_pad - n))
     bytes_moved = probs.numel() * 2 + v.numel() * 2 + got.numel() * 2
@@ -438,6 +483,10 @@ def k4_apply_probs(device, hw8=(47, 154), d=128, seed=8) -> dict:
         "replaces": "atdn_vslam_tpu/ops/attention.py:851",
         "shape": [1, n, n_pad, d], "dtype": "torch.bfloat16", "tolerance": K4_TOL,
         "max_abs_err": max_err,
+        "batch2": {"rows": rows2, "values": nv2, "max_abs_err": batch2},
+        "design": "tma+wgmma, 2 consumer WG x 64 rows + producer warp, 6 stages of 64 keys, "
+                  "key split over the SMs, fixed-order fixup",
+        "ptxas": ptxas_report("apply_probs", "apply_probs_bf16_kernel"),
         "ms": time_ms(lambda: flash_apply_probs(probs, v), device),
         "plain_ms": time_ms(lambda: flash_apply_probs_plain(probs, v), device),
         "library_ms": time_ms(lambda: torch.matmul(p2, v_pad), device),
@@ -1022,7 +1071,8 @@ def main(argv=None) -> int:
             json.dump(results, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
+    print(json.dumps({"kernels": [{key: k[key] for key in keys + ("design", "ptxas") if key in k}
+                                  for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

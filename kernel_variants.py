@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Time edited copies of a bf16 kernel of the PyTorch port on one GPU.
+
+    python3 kernel_variants.py {flash_attend,apply_probs} DIR [DIR ...]
+
+Each DIR holds an edited copy of ``atdn_vslam_torch/csrc/<name>.cu``
+and of every header it includes (``hopper.cuh``). Each copy is built
+with the port's ``nvcc`` flags, its C entry point called through ctypes
+on chip_smoke's inputs (K5 at 2x KITTI, 28952 tokens; K4 on K1's KITTI
+output), checked against the plain version, and timed with chip_smoke's
+``time_ms`` (K4 with a per-call zeroed counter buffer); the last line
+times the tree's own wrapper. One JSON line per copy: ptxas's register,
+spill and wgmma lines, the max abs error, and the ms of three timings.
+Exits non-zero when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def build(name: str, path: str) -> tuple[ctypes.CDLL | None, list[str]]:
+    from atdn_vslam_torch.ops import _kernels
+
+    out = os.path.join(path, f"lib{name}.so")
+    cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", path, "-o", out, os.path.join(path, f"{name}.cu")]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    log = [ln.strip() for ln in (r.stdout + r.stderr).splitlines()
+           if any(w in ln for w in ("registers", "spill", "wgmma", "error"))]
+    if r.returncode != 0:
+        return None, log
+    lib = ctypes.CDLL(out)
+    fn = getattr(lib, f"atdn_{name}")
+    fn.argtypes = list(_kernels._SIGNATURES[name][f"atdn_{name}"])
+    fn.restype = ctypes.c_int
+    return lib, log
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if len(args) < 2 or args[0] not in ("flash_attend", "apply_probs"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from atdn_vslam_torch.ops import attention as att
+
+    name, dirs = args[0], args[1:]
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if name == "flash_attend":
+        g = torch.Generator(device=dev).manual_seed(5)
+        n, d = 94 * 308, 128
+        q = (torch.randn((1, n, d), generator=g, device=dev) * d**-0.5).to(torch.bfloat16)
+        k, v = (torch.randn((1, n, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        out = torch.empty_like(q)
+        ref = att.flash_attend_plain(q, k, v, 1.0)
+
+        def call(fn):
+            return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, n, n, d, d, 1.0,
+                      1, 0, stream)
+
+        def tree():
+            return att.flash_attend(q, k, v, 1.0)
+    else:
+        probs, v, _ = chip_smoke.k4_inputs(dev, (47, 154), 128, 8)
+        b, h, w, kp = probs.shape
+        out = torch.empty((b, h, w, 128), dtype=torch.bfloat16, device=dev)
+        ref = att.flash_apply_probs_plain(probs, v)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid, tiles = att._apply_probs_split(b, h * w, kp, sms)
+        ws = torch.empty((grid, att._APPLY_PARTIALS), dtype=torch.float32, device=dev)
+
+        def call(fn):
+            counters = torch.zeros((tiles, 2), dtype=torch.int32, device=dev)
+            return fn(probs.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                      counters.data_ptr(), b, h * w, kp, v.shape[1], 128, grid, 1, 0, stream)
+
+        def tree():
+            return att.flash_apply_probs(probs, v)
+
+    for path in dirs:
+        lib, log = build(name, path)
+        row = {"variant": path, "ptxas": log}
+        if lib is not None:
+            fn = getattr(lib, f"atdn_{name}")
+            status = call(fn)
+            torch.cuda.synchronize()
+            row["status"] = status
+            if status == 0:
+                row["max_abs_err"] = float((out.float() - ref.float()).abs().max())
+                row["ms"] = [chip_smoke.time_ms(lambda: call(fn), dev) for _ in range(3)]
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"variant": "tree wrapper", "ms": [chip_smoke.time_ms(tree, dev) for _ in range(3)]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -111,3 +111,35 @@ def test_flash_apply_probs_wrapper_on_cpu_is_plain():
     got = att.flash_apply_probs(probs, v)
     assert att.flash_apply_probs.launches == before
     torch.testing.assert_close(got, att.flash_apply_probs_plain(probs, v), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,m,k,sms", [
+    (1, 7238, 7296, 132),  # KITTI: 57 tiles x 114 key steps over the H100's 132 SMs
+    (1, 1, 8, 132),        # one row, one partial key step
+    (2, 510, 512, 132),    # fewer units than SMs: one unit per block
+    (1, 2000, 2048, 132),  # blocks cross tile boundaries
+    (3, 129, 1152, 7),
+])
+def test_apply_probs_split_covers_every_unit_once(b, m, k, sms):
+    """The bf16 kernel's key split: at most one block per SM and at
+    least one unit per block; the blocks' ranges cover every (tile, key
+    step) unit once, in order; a block shares at most two tiles with
+    other blocks (the first and the last of its range), so two partial
+    slots per block suffice; a tile covered by one block alone needs no
+    partial sum."""
+    blocks, tiles = att._apply_probs_split(b, m, k, sms)
+    steps = -(-k // 64)
+    units = tiles * steps
+    assert tiles == b * -(-m // 128)
+    assert 1 <= blocks <= min(sms, units)
+    ranges = [(i * units // blocks, (i + 1) * units // blocks) for i in range(blocks)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == units
+    assert all(u0 < u1 for u0, u1 in ranges)
+    assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+    for u0, u1 in ranges:
+        shared = [t for t in range(u0 // steps, (u1 - 1) // steps + 1)
+                  if not (u0 <= t * steps and (t + 1) * steps <= u1)]
+        assert shared in ([], [u0 // steps], [(u1 - 1) // steps], [u0 // steps, (u1 - 1) // steps])
+    assert att._APPLY_PARTIALS == 2 * 2 * 64 * 128
+    if (b, m, k) == (1, 7238, 7296):
+        assert (blocks, tiles) == (132, 57)

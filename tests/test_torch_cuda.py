@@ -92,14 +92,20 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "nq,nk,d,dv", [(64, 64, 16, 16), (100, 300, 32, 16), (300, 100, 128, 128), (7, 1000, 64, 128)]
+    "nq,nk,d,dv",
+    [(64, 64, 16, 16), (100, 300, 32, 16), (300, 100, 128, 128), (7, 1000, 64, 128),
+     (130, 129, 64, 64), (257, 1000, 16, 64), (65, 300, 64, 16)],
 )
 def test_flash_attend_kernel(cuda, dtype, nq, nk, d, dv):
-    """Nq != Nk and Nk not a multiple of the key tile (64 bf16, 32 f32).
-    f32: the same softmax up to summation order (1e-5); bf16: both round
-    exp(s - max) to bf16, the kernel against its running max, so the
-    weights differ by an ulp (atol 2^-8 on outputs of size ~0.1-1, rtol
-    2^-7). Launches are counted; no row past Nq is written."""
+    """Nq != Nk and Nk not a multiple of the key tile (128 bf16, 32 f32);
+    Nq not a multiple of the 128-row bf16 block; a last key tile of one
+    key (Nk = 129); D and Dv of 16, 64 and 128; batch 2 with a ragged key
+    count, so a load that reached past a batch's keys would read the
+    next batch's. f32: the same softmax up to summation order (1e-5);
+    bf16: both round exp(s - max) to bf16, the kernel against its running
+    max, so the weights differ by an ulp (atol 2^-8 on outputs of size
+    ~0.1-1, rtol 2^-7). Launches are counted; no row past Nq is
+    written."""
     rng = np.random.default_rng(2)
     q = torch.from_numpy(rng.normal(size=(2, nq, d)).astype(np.float32) * d**-0.5)
     k = torch.from_numpy(rng.normal(size=(2, nk, d)).astype(np.float32))

@@ -92,11 +92,20 @@ def test_nlanes_pyramid_lookup_launches(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w,d,dv", [(1, 5, 9, 16, 32), (2, 7, 20, 32, 16), (1, 13, 81, 16, 128)])
-def test_apply_probs_kernel(cuda, dtype, b, h, w, d, dv):
-    """Rows not a multiple of the 64-row block, keys (N_pad = 128, 256,
-    1152) ragged against the 64-key stage, v with fewer rows than P has
-    columns. Both accumulate the same products in float32 in another
+@pytest.mark.parametrize("b,h,w,d,dv,kp", [
+    (1, 5, 9, 16, 32, None), (2, 7, 20, 32, 16, None), (1, 13, 81, 16, 128, None),
+    (1, 1, 1, 16, 64, 8),        # M = 1 and one partial key step (K = 8)
+    (2, 2, 3, 16, 16, 8),        # batch 2, K = 8
+    (2, 17, 30, 16, 64, None),   # batch 2, 510 rows, K = 512: fewer units than SMs
+    (1, 40, 50, 16, 128, None),  # 2000 rows, K = 2048: blocks cross tile boundaries
+])
+def test_apply_probs_kernel(cuda, dtype, b, h, w, d, dv, kp):
+    """Rows not a multiple of the 64-row (float32) or 128-row (bf16)
+    block, keys (N_pad = 128, 256, 512, 1152, 2048, or K = 8) ragged
+    against the 64-key stage, v with fewer rows than P has columns, M =
+    1, batch 2 (a load reaching past a batch's rows or v's rows would
+    read the next batch's), and the bf16 kernel's key split across
+    blocks. Both accumulate the same products in float32 in another
     order: f32 1e-5; bf16 out one ulp (rtol 2^-7)."""
     g = torch.Generator().manual_seed(4)
     n = h * w
@@ -104,6 +113,8 @@ def test_apply_probs_kernel(cuda, dtype, b, h, w, d, dv):
     k = torch.randn((b, n, d), generator=g).to(cuda, dtype)
     v = torch.randn((b, n, dv), generator=g).to(cuda, dtype)
     probs = attention_probs_spatial_plain(q, k, h, w, 1.0)
+    if kp is not None:
+        probs = torch.nn.functional.pad(probs[..., :n], (0, kp - n))
     before = flash_apply_probs.launches
     got = flash_apply_probs(probs, v)
     torch.cuda.synchronize()
@@ -115,6 +126,23 @@ def test_apply_probs_kernel(cuda, dtype, b, h, w, d, dv):
     via = apply_attention_probs(probs, v.float(), use_pallas=True)  # v cast to probs' type
     assert via.dtype == dtype
     torch.testing.assert_close(via, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 17, 30), (1, 40, 50)])
+def test_apply_probs_kernel_is_deterministic(cuda, b, h, w):
+    """The bf16 kernel splits tiles between blocks and adds the segments
+    in a fixed order behind a counter, not with float atomics: two
+    launches give the same bits."""
+    g = torch.Generator().manual_seed(6)
+    n = h * w
+    q = (torch.randn((b, n, 16), generator=g) * 0.25).to(cuda, torch.bfloat16)
+    k = torch.randn((b, n, 16), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((b, n, 128), generator=g).to(cuda, torch.bfloat16)
+    probs = attention_probs_spatial_plain(q, k, h, w, 1.0)
+    first = flash_apply_probs(probs, v)
+    second = flash_apply_probs(probs, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_apply_probs_backward_on_the_card(cuda):
