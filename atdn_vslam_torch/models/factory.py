@@ -52,12 +52,18 @@ def build_flow_model(
         dtype=dtype, use_pallas=use_pallas, corr_nlanes=corr_nlanes,
     )
     model.to(dev)
+    return cast_flow_model(model, dtype).eval()
+
+
+def cast_flow_model(model: RAFTGMA, dtype: torch.dtype) -> RAFTGMA:
+    """``model`` in ``dtype``, in place, with its batch-norm parameters
+    and statistics kept float32."""
     if dtype != torch.float32:
         model.to(dtype)
         for m in model.modules():
             if isinstance(m, nn.BatchNorm2d):
                 m.float()
-    return model.eval()
+    return model
 
 
 def build_odometry_model(config: Config, device: str | torch.device = "cuda") -> ATDNVO:

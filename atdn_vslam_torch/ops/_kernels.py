@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 #: the C entry points of each source: name -> argtypes
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "attention_probs": {
         # q, k, m, l, out, b, n, n_kv, n_pad, d, scale, is_bf16, device, stream
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "corr_dot": {
         # f1, f2, out, b, n, m, c, inv_sqrt_c, in_bf16, out_bf16, device, stream
         "atdn_corr_dot": (_P,) * 3 + (_I,) * 4 + (_F, _I, _I, _I, _P),
+        # out_bf16, blocks (out), device
+        "atdn_corr_dot_occupancy": (_I, _IP, _I),
     },
     "corr_lookup_nlanes": {
         # vol0..3, coords, out, h0..3, w0..3, b, n, levels, first_level, radius,
@@ -64,9 +67,11 @@ _SIGNATURES = {
         "atdn_corr_lookup_slab": (_P,) * 6 + (_I,) * 8 + (_I,) * 6 + (_P,),
     },
     "corr_dot_tiled": {
-        # f1, f2, out, b, n, hl, wl, c, sb, sh, sw, sc, inv_sqrt_c, in_bf16, out_bf16,
-        # device, stream
-        "atdn_corr_dot_tiled": (_P,) * 3 + (_I,) * 5 + (_L,) * 4 + (_F, _I, _I, _I, _P),
+        # f1, f2, scratch, out, b, n, hl, wl, c, sb, sh, sw, sc, inv_sqrt_c, in_bf16,
+        # out_bf16, device, stream
+        "atdn_corr_dot_tiled": (_P,) * 4 + (_I,) * 5 + (_L,) * 4 + (_F, _I, _I, _I, _P),
+        # out_bf16, blocks (out), device
+        "atdn_corr_dot_tiled_occupancy": (_I, _IP, _I),
     },
 }
 
@@ -156,6 +161,18 @@ def check(status: int, what: str) -> None:
     (the launch was refused, or an argument was rejected)."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def blocks_per_sm(name: str, out_dtype: torch.dtype, device: torch.device) -> int:
+    """Blocks of the bf16-input kernel of ``csrc/<name>.cu`` (``corr_dot``
+    or ``corr_dot_tiled``) that stay resident on one SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) for bf16 or
+    float32 output."""
+    blocks = ctypes.c_int(0)
+    fn = getattr(library(name), f"atdn_{name}_occupancy")
+    check(fn(int(out_dtype == torch.bfloat16), ctypes.byref(blocks), device.index or 0),
+          f"{name} occupancy")
+    return blocks.value
 
 
 def aligned(x: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,11 @@ Counterpart of the experiment ``tools/profiling/exp_r5_tileddot.py``
 (``csrc/corr_dot_tiled.cu``) replaces its TPU kernel: the function of
 K3 (``ops/corr_lookup.py`` ``corr_dot_rowmajor``), one level of the
 volume scaled by 1/sqrt(C) after the float32 sum and cast once, taking
-f2 as a (B, Hl, Wl, C) map read through its strides (the NHWC view of
-an NCHW feature map needs no copy) and writing (B, N, Hl, Wl).
+f2 as a (B, Hl, Wl, C) map with any strides and writing (B, N, Hl, Wl).
+bf16 features go through the TMA + wgmma core that K3 uses; an f2 that
+is not contiguous channels-last (the NHWC view of an NCHW feature map)
+is first staged K-major into a scratch buffer that the wrapper
+allocates, because a tensor map needs 16-byte strides.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ def corr_dot_tiled(
     On CPU tensors this is :func:`corr_dot_tiled_plain`; on CUDA tensors
     it launches the CUDA kernel (f1 and f2 both bf16 or both float32, C a
     multiple of 8, f2 with any strides; bf16 or float32 out) and counts
-    one launch, or raises.
+    one launch, or raises. A bf16 f2 that is not contiguous with a
+    16-byte aligned start is staged into a (B, Hl*Wl, C) scratch buffer
+    by the kernel's own transposing pass first (one launch all the same).
     """
     if f1.device.type == "cpu":
         return corr_dot_tiled_plain(f1, f2, inv_sqrt_c, out_dtype)
@@ -58,9 +63,13 @@ def corr_dot_tiled(
     if c % 8 or n < 1 or hl < 1 or wl < 1:
         raise ValueError(f"channels {c} must be a multiple of 8, rows {n}, {hl} x {wl} at least 1")
     f1 = _kernels.aligned(f1)
+    scratch = None
+    if f1.dtype == torch.bfloat16 and not (f2.is_contiguous() and f2.data_ptr() % 16 == 0):
+        scratch = torch.empty((b, hl * wl, c), dtype=f2.dtype, device=f2.device)
     out = torch.empty((b, n, hl, wl), dtype=out_dtype, device=f1.device)
     status = _kernels.library("corr_dot_tiled").atdn_corr_dot_tiled(
-        f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, n, hl, wl, c, *f2.stride(),
+        f1.data_ptr(), f2.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        out.data_ptr(), b, n, hl, wl, c, *f2.stride(),
         float(inv_sqrt_c), int(f1.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         f1.device.index or 0, torch.cuda.current_stream(f1.device).cuda_stream,
     )

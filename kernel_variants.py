@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Time edited copies of a bf16 kernel of the PyTorch port on one GPU.
 
-    python3 kernel_variants.py {flash_attend,apply_probs} DIR [DIR ...]
+    python3 kernel_variants.py {flash_attend,apply_probs,corr_dot,corr_dot_tiled} DIR [DIR ...]
 
 Each DIR holds an edited copy of ``atdn_vslam_torch/csrc/<name>.cu``
-and of every header it includes (``hopper.cuh``). Each copy is built
-with the port's ``nvcc`` flags, its C entry point called through ctypes
-on chip_smoke's inputs (K5 at 2x KITTI, 28952 tokens; K4 on K1's KITTI
-output), checked against the plain version, and timed with chip_smoke's
-``time_ms`` (K4 with a per-call zeroed counter buffer); the last line
-times the tree's own wrapper. One JSON line per copy: ptxas's register,
-spill and wgmma lines, the max abs error, and the ms of three timings.
-Exits non-zero when no CUDA device is present.
+and of every header it includes (``hopper.cuh``; for ``corr_dot`` and
+``corr_dot_tiled`` also ``corr_dot_wgmma.cuh`` and
+``corr_dot_tiles.cuh``). Each copy is built with the port's ``nvcc``
+flags, its C entry point called through ctypes on chip_smoke's inputs
+(K5 and K3 at 2x KITTI, 28952 tokens; K4 on K1's KITTI output; K3t on
+the four KITTI levels, level 0 the NHWC view of a channels-first map,
+staged into a scratch buffer as the wrapper does), checked against the
+plain version, and timed with chip_smoke's ``time_ms`` (K4 with a
+per-call zeroed counter buffer); the last line times the tree's own
+wrapper. One JSON line per copy: ptxas's register, spill and wgmma
+lines, the max abs error, whether it is within the kernel's chip_smoke
+tolerance, and the ms of three timings. Exits non-zero when no CUDA
+device is present.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ def build(name: str, path: str) -> tuple[ctypes.CDLL | None, list[str]]:
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    if len(args) < 2 or args[0] not in ("flash_attend", "apply_probs"):
+    if len(args) < 2 or args[0] not in ("flash_attend", "apply_probs", "corr_dot", "corr_dot_tiled"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -55,10 +60,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     import chip_smoke
     from atdn_vslam_torch.ops import attention as att
+    from atdn_vslam_torch.ops import corr_dot_tiled as k3t
+    from atdn_vslam_torch.ops import corr_lookup
 
     name, dirs = args[0], args[1:]
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tol = {"flash_attend": chip_smoke.K5_TOL, "apply_probs": chip_smoke.K4_TOL}.get(name, chip_smoke.K3_TOL)
     if name == "flash_attend":
         g = torch.Generator(device=dev).manual_seed(5)
         n, d = 94 * 308, 128
@@ -73,6 +81,38 @@ def main(argv=None) -> int:
 
         def tree():
             return att.flash_attend(q, k, v, 1.0)
+    elif name == "corr_dot":
+        g = torch.Generator(device=dev).manual_seed(6)
+        n, c = 94 * 308, 256
+        f1, f2 = (torch.randn((1, n, c), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        out = torch.empty((1, n, n), dtype=torch.bfloat16, device=dev)
+        ref = corr_lookup.corr_dot_rowmajor_plain(f1, f2, c**-0.5)
+
+        def call(fn):
+            return fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), 1, n, n, c, c**-0.5, 1, 1, 0, stream)
+
+        def tree():
+            return corr_lookup.corr_dot_rowmajor(f1, f2, c**-0.5)
+    elif name == "corr_dot_tiled":
+        f1, levels = chip_smoke.k3t_inputs(dev, (47, 154), 256, 10)
+        n, c = f1.shape[1:]
+        outs = [torch.empty((1, n, *f2l.shape[1:3]), dtype=torch.bfloat16, device=dev) for f2l in levels]
+        scratch = [None if f2l.is_contiguous() and f2l.data_ptr() % 16 == 0
+                   else torch.empty((1, f2l.shape[1] * f2l.shape[2], c), dtype=torch.bfloat16, device=dev)
+                   for f2l in levels]
+        out = torch.cat([o.flatten() for o in outs])
+        ref = torch.cat([k3t.corr_dot_tiled_plain(f1, f2l, c**-0.5).flatten() for f2l in levels])
+
+        def call(fn):
+            status = 0
+            for f2l, o, sc in zip(levels, outs, scratch):
+                status = status or fn(
+                    f1.data_ptr(), f2l.data_ptr(), None if sc is None else sc.data_ptr(), o.data_ptr(),
+                    1, n, f2l.shape[1], f2l.shape[2], c, *f2l.stride(), c**-0.5, 1, 1, 0, stream)
+            return status
+
+        def tree():
+            return [k3t.corr_dot_tiled(f1, f2l, c**-0.5) for f2l in levels]
     else:
         probs, v, _ = chip_smoke.k4_inputs(dev, (47, 154), 128, 8)
         b, h, w, kp = probs.shape
@@ -99,7 +139,14 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             row["status"] = status
             if status == 0:
+                if name == "corr_dot_tiled":
+                    out = torch.cat([o.flatten() for o in outs])
                 row["max_abs_err"] = float((out.float() - ref.float()).abs().max())
+                try:
+                    chip_smoke.check_close(name, out, ref, **tol)
+                    row["within_tolerance"] = True
+                except AssertionError:
+                    row["within_tolerance"] = False
                 row["ms"] = [chip_smoke.time_ms(lambda: call(fn), dev) for _ in range(3)]
         print(json.dumps(row), flush=True)
     print(json.dumps({"variant": "tree wrapper", "ms": [chip_smoke.time_ms(tree, dev) for _ in range(3)]}))

@@ -156,6 +156,38 @@ def test_corr_dot_kernel(cuda, in_dtype, out_dtype, n, m, c):
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-5)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,m,c", [(70, 7238, 256), (33, 95, 64), (129, 95, 40), (17, 7238, 8)])
+def test_corr_dot_core_rows_at_every_alignment(cuda, out_dtype, n, m, c):
+    """The bf16-input core (TMA + wgmma) at batch 2 and widths whose rows
+    start at every alignment modulo 16 bytes (M = 7238: four, M = 95:
+    eight in bf16, four in float32), so each row's head, 16-byte body
+    and tail stores are met; C of 256 (four boxes), 64 (one), 40 (a
+    box partly zero-filled) and 8 (less than one product step). The
+    output is written into a sentinel-filled buffer with 16 bytes free on
+    either side: no store lands outside it. Both round one float32 sum:
+    f32 out 1e-5, bf16 out one ulp (2^-7)."""
+    from atdn_vslam_torch.ops import _kernels
+
+    rng = np.random.default_rng(6)
+    f1 = torch.from_numpy(rng.normal(size=(2, n, c)).astype(np.float32)).to(cuda, torch.bfloat16)
+    f2 = torch.from_numpy(rng.normal(size=(2, m, c)).astype(np.float32)).to(cuda, torch.bfloat16)
+    pad = 16 // torch.empty((), dtype=out_dtype).element_size()
+    buf = torch.full((2 * n * m + 2 * pad,), -7.0, dtype=out_dtype, device=cuda)
+    status = _kernels.library("corr_dot").atdn_corr_dot(
+        f1.data_ptr(), f2.data_ptr(), buf[pad:].data_ptr(), 2, n, m, c, c**-0.5, 1,
+        int(out_dtype == torch.bfloat16), 0, torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert status == 0
+    assert bool((buf[:pad] == -7.0).all()) and bool((buf[-pad:] == -7.0).all())
+    got = buf[pad:-pad].reshape(2, n, m)
+    ref = corr_dot_rowmajor_plain(f1, f2, c**-0.5, out_dtype)
+    rtol = 1e-5 if out_dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-5)
+    torch.testing.assert_close(corr_dot_rowmajor(f1, f2, c**-0.5, out_dtype), got, rtol=0, atol=0)
+
+
 def test_corr_pyramid_through_the_kernel(cuda):
     """build_corr_pyramid(use_pallas=True) launches K3 once per level and
     gives the levels of the default path (both round a float32 sum once)."""

@@ -210,6 +210,55 @@ def test_corr_dot_tiled_kernel(cuda, in_dtype, out_dtype, n, hl, wl, c, channels
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-5)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [256, 40])
+def test_corr_dot_tiled_stages_a_channels_first_map(cuda, out_dtype, c):
+    """f2 the NHWC view of a (2, C, 47, 154) NCHW map, the KITTI level 0
+    as the encoder gives it: its channel stride 47 * 154 * 2 = 14,476
+    bytes is no multiple of 16, so no tensor map can read it. The
+    wrapper hands the kernel a scratch buffer, the transposing pass
+    stages f2 K-major, and one launch is counted; the C entry refuses the
+    same f2 without a scratch buffer. f32 out 1e-5, bf16 out one ulp."""
+    from atdn_vslam_torch.ops import _kernels
+
+    g = torch.Generator().manual_seed(11)
+    f1 = torch.randn((2, 60, c), generator=g).to(cuda, torch.bfloat16)
+    f2 = torch.randn((2, c, 47, 154), generator=g).to(cuda, torch.bfloat16).permute(0, 2, 3, 1)
+    before = corr_dot_tiled.launches
+    got = corr_dot_tiled(f1, f2, c**-0.5, out_dtype)
+    torch.cuda.synchronize()
+    assert corr_dot_tiled.launches == before + 1
+    assert got.shape == (2, 60, 47, 154) and got.dtype == out_dtype
+    rtol = 1e-5 if out_dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), corr_dot_tiled_plain(f1, f2, c**-0.5, out_dtype).float(),
+                               rtol=rtol, atol=1e-5)
+    status = _kernels.library("corr_dot_tiled").atdn_corr_dot_tiled(
+        f1.data_ptr(), f2.data_ptr(), None, got.data_ptr(), 2, 60, 47, 154, c, *f2.stride(),
+        c**-0.5, 1, int(out_dtype == torch.bfloat16), 0, torch.cuda.current_stream().cuda_stream,
+    )
+    assert status != 0
+
+
+@pytest.mark.parametrize("kernel", ["corr_dot", "corr_dot_tiled"])
+def test_corr_dot_kernels_are_deterministic(cuda, kernel):
+    """Each output element is one block's float32 sum in a fixed order:
+    two launches of the bf16 core give the same bits (K3t through its
+    staging pass)."""
+    from atdn_vslam_torch.ops.corr_lookup import corr_dot_rowmajor
+
+    g = torch.Generator().manual_seed(12)
+    f1 = torch.randn((2, 300, 256), generator=g).to(cuda, torch.bfloat16)
+    f2 = torch.randn((2, 256, 23, 77), generator=g).to(cuda, torch.bfloat16).permute(0, 2, 3, 1)
+    if kernel == "corr_dot":
+        f2 = f2.reshape(2, 23 * 77, 256)
+        run = lambda: corr_dot_rowmajor(f1, f2, 1 / 16)  # noqa: E731
+    else:
+        run = lambda: corr_dot_tiled(f1, f2, 1 / 16)  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_pyramid_tiled_through_the_kernel(cuda):
     """build_pyramid_tiled launches K3t once per level and gives the
     levels of the default build (both round a float32 sum once; f1 is

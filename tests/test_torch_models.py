@@ -2,7 +2,8 @@
 weights: JAX variables carried into the port with
 ``atdn_vslam_torch.convert`` (and back through
 ``tools/convert_torch_checkpoint.py``, exactly), then RAFTGMA in test
-mode and ATDNVO on the same numpy-made inputs, float32 throughout.
+mode and ATDNVO on the same numpy-made inputs, float32 throughout
+except for one test of the flow net in bfloat16.
 
 GMA's ``gamma`` is set non-zero and the batch-norm statistics are
 drawn away from their initial values before the weights are carried:
@@ -22,7 +23,8 @@ from tools.convert_torch_checkpoint import convert_atdnvo, convert_gma
 
 from atdn_vslam_torch.config import Config, FlowNetConfig, SlamConfig
 from atdn_vslam_torch.convert import atdnvo_state_dict_from_jax, gma_state_dict_from_jax
-from atdn_vslam_torch.models.factory import build_flow_model, build_odometry_model
+from atdn_vslam_torch.models.factory import build_flow_model, build_odometry_model, cast_flow_model
+from atdn_vslam_torch.models.flow.network import RAFTGMA
 
 torch.set_num_threads(1)
 torch.backends.cudnn.allow_tf32 = False
@@ -189,6 +191,35 @@ def test_raftgma_flow_init_pair_matches_jax(gma, frames):
         )
     np.testing.assert_allclose(got_low.numpy(), want_low, **FLOW_TOL)
     np.testing.assert_allclose(got_up.numpy(), want_up, **FLOW_TOL)
+
+
+def test_raftgma_bf16_matches_jax_bf16(gma, frames):
+    """RAFTGMA in bfloat16, cast as ``build_flow_model`` casts it (batch
+    norm kept float32), against the JAX flow net with
+    ``dtype=jnp.bfloat16``, same weights and frames. The two frameworks
+    round to bf16 at other places (convolution outputs, the cast of the
+    volume, the attention), so the tolerance is the reference's own
+    bf16 error: the port's bf16 flow may lie no farther from the JAX bf16
+    flow than that lies from the JAX float32 flow, at either resolution
+    (measured: 0.62x of it at 1/8 resolution, 0.53x at full, on flows of
+    up to 3.3 and 22.6 px)."""
+    model, variables, port = gma
+    im1, im2 = frames
+    want_f32 = _jax_flow(model, variables, jnp.asarray(im1), jnp.asarray(im2))
+    jax_bf16 = JRAFTGMA(iters=ITERS, use_pallas=False, dtype=jnp.bfloat16)
+    want = [np.asarray(x, np.float32) for x in _jax_flow(jax_bf16, variables, jnp.asarray(im1), jnp.asarray(im2))]
+    bf16 = RAFTGMA(iters=ITERS, dtype=torch.bfloat16)
+    bf16.load_state_dict(port.state_dict())
+    cast_flow_model(bf16, torch.bfloat16).eval()
+    assert bf16.fnet.conv1.weight.dtype == torch.bfloat16
+    assert all(m.running_var.dtype == torch.float32 for m in bf16.modules() if isinstance(m, torch.nn.BatchNorm2d))
+    with torch.no_grad():
+        got = [x.float().numpy() for x in bf16(torch.from_numpy(im1), torch.from_numpy(im2))]
+    for g, w, w32 in zip(got, want, want_f32):
+        reference_gap = float(np.abs(w - w32).max())
+        assert reference_gap > 0.0  # the JAX bf16 path did round
+        assert np.isfinite(g).all()
+        assert float(np.abs(g - w).max()) <= reference_gap
 
 
 def test_raftgma_refuses_what_is_not_ported(gma, frames):
