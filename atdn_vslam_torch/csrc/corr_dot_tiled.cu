@@ -163,6 +163,6 @@ extern "C" int atdn_corr_dot_tiled(const void* f1, const void* f2, void* scratch
 extern "C" int atdn_corr_dot_tiled_occupancy(int out_bf16, int* blocks, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return out_bf16 ? corr_dot_wgmma::occupancy<bf16>(blocks)
-                  : corr_dot_wgmma::occupancy<float>(blocks);
+  return out_bf16 ? corr_dot_wgmma::occupancy<corr_dot_wgmma::ScaleCast<bf16>>(blocks)
+                  : corr_dot_wgmma::occupancy<corr_dot_wgmma::ScaleCast<float>>(blocks);
 }

@@ -36,6 +36,9 @@
 //     streaming stores (st.global.cs), so the output lines, written once,
 //     are the first to leave L2. Rows >= N and columns >= M are never
 //     written.
+// The epilogue is a template parameter: K3 and K3t take ScaleCast below
+// (scale, cast); K1's write pass (attention_probs.cu) takes a softmax
+// epilogue over the same main loop and stores.
 // Left undone: a persistent tile loop, TMA stores (they need M * 2 to be a
 // multiple of 16, which of the chip_smoke shapes only 2x level 0 meets),
 // a cluster multicast of the f1 tile shared by a row of blocks.
@@ -74,17 +77,39 @@ template <typename Tout> struct Staging {
   static_assert(64 * LD * (int)sizeof(Tout) <= RING / 2, "a warpgroup's rows do not fit its half of the ring");
 };
 
+// The epilogue of K3 and K3t: out[b, row, col] = scale * sum, cast to
+// Tout, row-major (B, N, M). An epilogue type gives the output (out, n,
+// ld: elements per output row, cols: columns of the tile at col0 that
+// exist), EXTRA_SMEM bytes of shared memory after the barriers, a
+// prologue run by every thread before the main loop (its shared-memory
+// writes are read after the loop's closing __syncthreads), per-row
+// parameters (row) and the value of each sum (value).
+template <typename T> struct ScaleCast {
+  typedef T Tout;
+  static constexpr int EXTRA_SMEM = 0;
+  struct Row {};
+  T* out;
+  int n, m;
+  float scale;
+  __device__ __forceinline__ void prologue(float*, int, int) const {}
+  __device__ __forceinline__ Row row(const float*, int) const { return Row{}; }
+  __device__ __forceinline__ float value(float sum, Row, int) const { return sum * scale; }
+  __device__ __forceinline__ size_t ld() const { return (size_t)m; }
+  __device__ __forceinline__ int cols(int col0) const { return min(BN, m - col0); }
+};
+
 // one 128 x 128 tile at (row0 = 128 blockIdx.y, col0 = 128 blockIdx.x) of
 // batch blockIdx.z; f1 through map_a (C, N, B), f2 through map_b (C, M, B)
-template <typename Tout>
+template <typename Epi>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 corr_dot_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                      const __grid_constant__ CUtensorMap map_b, Tout* __restrict__ out, int n,
-                      int m, int c, float scale) {
+                      const __grid_constant__ CUtensorMap map_b, const Epi epi, int c) {
+  typedef typename Epi::Tout Tout;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + RING);
   uint64_t* empty = full + STAGES;
+  float* extra = reinterpret_cast<float*>(empty + STAGES);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -106,6 +131,7 @@ corr_dot_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   };
   if (tid == 0)
     for (int j = 0; j < STAGES && j < ksteps; ++j) load(j);
+  epi.prologue(extra, row0, b);
 
   // warpgroup wg: rows 64 wg .. + 63 of the f1 box against all 128 f2 rows
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
@@ -137,18 +163,21 @@ corr_dot_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   constexpr int VEC = S::VEC, LD = S::LD;
   Tout* stage = reinterpret_cast<Tout*>(ring + wg * (RING / 2));
   const int wtid = tid % 128, w = wtid / 32, g = (wtid % 32) / 4, t = wtid % 4;
-  const int cols = min(BN, m - col0);
+  const int n = epi.n, cols = epi.cols(col0);
+  Tout* out = epi.out;
   // element index of (row, col0) in the whole output; its residue mod VEC
   // is the row's shift (out itself is 16-byte aligned)
-  auto row_start = [&](int row) { return ((size_t)b * n + row) * (size_t)m + col0; };
+  auto row_start = [&](int row) { return ((size_t)b * n + row) * epi.ld() + col0; };
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = 16 * w + g + 8 * h;  // row within the warpgroup's 64
+    const typename Epi::Row rp = epi.row(extra, 64 * wg + r);
     Tout* dst = stage + r * LD + (int)(row_start(row0 + 64 * wg + r) % VEC);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      dst[8 * j + 2 * t] = from_float<Tout>(acc[4 * j + 2 * h] * scale);
-      dst[8 * j + 2 * t + 1] = from_float<Tout>(acc[4 * j + 2 * h + 1] * scale);
+      const int col = col0 + 8 * j + 2 * t;
+      dst[8 * j + 2 * t] = from_float<Tout>(epi.value(acc[4 * j + 2 * h], rp, col));
+      dst[8 * j + 2 * t + 1] = from_float<Tout>(epi.value(acc[4 * j + 2 * h + 1], rp, col + 1));
     }
   }
   named_bar_sync(1 + wg, 128);
@@ -172,6 +201,26 @@ corr_dot_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
+// the tiles of the (b, n, m) product of f1 (b, n, c) and f2 (b, m, c),
+// both contiguous bf16 with 16-byte aligned starts, c a multiple of 8,
+// through the epilogue epi. Returns a cudaError_t, or TENSOR_MAP_ERROR +
+// a CUresult.
+template <typename Epi>
+int launch_tiles(const void* f1, const void* f2, const Epi& epi, int b, int n, int m, int c,
+                 cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  int e = encode_bf16_3d(&map_a, f1, c, n, b, BK, BM);
+  if (e == 0) e = encode_bf16_3d(&map_b, f2, c, m, b, BK, BN);
+  if (e != 0) return e;
+  constexpr int smem = SMEM + Epi::EXTRA_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(corr_dot_wgmma_kernel<Epi>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM, b);
+  corr_dot_wgmma_kernel<Epi><<<grid, THREADS, smem, stream>>>(map_a, map_b, epi, c);
+  return (int)cudaGetLastError();
+}
+
 // out (b, n, m) = scale * f1 f2^T for f1 (b, n, c), f2 (b, m, c): both
 // contiguous bf16 with 16-byte aligned starts, c a multiple of 8; out
 // contiguous and 16-byte aligned. Returns a cudaError_t, or
@@ -179,28 +228,20 @@ corr_dot_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 template <typename Tout>
 int launch(const void* f1, const void* f2, void* out, int b, int n, int m, int c, float scale,
            cudaStream_t stream) {
-  CUtensorMap map_a, map_b;
-  int e = encode_bf16_3d(&map_a, f1, c, n, b, BK, BM);
-  if (e == 0) e = encode_bf16_3d(&map_b, f2, c, m, b, BK, BN);
-  if (e != 0) return e;
-  cudaError_t err = cudaFuncSetAttribute(corr_dot_wgmma_kernel<Tout>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM, b);
-  corr_dot_wgmma_kernel<Tout><<<grid, THREADS, SMEM, stream>>>(map_a, map_b,
-                                                               static_cast<Tout*>(out), n, m, c,
-                                                               scale);
-  return (int)cudaGetLastError();
+  return launch_tiles(f1, f2, ScaleCast<Tout>{static_cast<Tout*>(out), n, m, scale}, b, n, m, c,
+                      stream);
 }
 
-// blocks of the kernel resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-template <typename Tout>
+// blocks of the kernel with epilogue Epi resident per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+template <typename Epi>
 int occupancy(int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(corr_dot_wgmma_kernel<Tout>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  constexpr int smem = SMEM + Epi::EXTRA_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(corr_dot_wgmma_kernel<Epi>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, corr_dot_wgmma_kernel<Tout>,
-                                                            THREADS, SMEM);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, corr_dot_wgmma_kernel<Epi>,
+                                                            THREADS, smem);
 }
 
 }  // namespace corr_dot_wgmma

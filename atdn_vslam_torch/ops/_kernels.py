@@ -36,12 +36,16 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "attention_probs": {
-        # q, k, m, l, out, b, n, n_kv, n_pad, d, scale, is_bf16, device, stream
-        "atdn_attention_probs": (_P,) * 5 + (_I,) * 5 + (_F, _I, _I, _P),
+        # q, k, ws, out, b, n, n_kv, n_pad, d, splits, scale, is_bf16, device, stream
+        "atdn_attention_probs": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _P),
+        # pass (1 statistics, 2 write), d, blocks (out), device
+        "atdn_attention_probs_occupancy": (_I, _I, _IP, _I),
     },
     "corr_lookup": {
         # vol0..3, coords, out, h0..3, w0..3, b, n, levels, radius, is_bf16, device, stream
         "atdn_corr_lookup": (_P,) * 6 + (_I,) * 8 + (_I,) * 6 + (_P,),
+        # is_bf16, blocks (out), device
+        "atdn_corr_lookup_occupancy": (_I, _IP, _I),
     },
     "flash_attend": {
         # q, k, v, out, b, nq, nk, d, dv, scale, is_bf16, device, stream
@@ -163,15 +167,16 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status}")
 
 
-def blocks_per_sm(name: str, out_dtype: torch.dtype, device: torch.device) -> int:
-    """Blocks of the bf16-input kernel of ``csrc/<name>.cu`` (``corr_dot``
-    or ``corr_dot_tiled``) that stay resident on one SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) for bf16 or
-    float32 output."""
+def blocks_per_sm(name: str, device: torch.device, *args: int) -> int:
+    """Blocks of a kernel of ``csrc/<name>.cu`` that stay resident on one
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), through the C
+    entry ``atdn_<name>_occupancy(*args, &blocks, device)``: for
+    ``corr_dot`` and ``corr_dot_tiled`` args = (out_bf16,) of the
+    bf16-input kernel; for ``attention_probs`` (pass, d) of the bf16
+    kernels; for ``corr_lookup`` (is_bf16,)."""
     blocks = ctypes.c_int(0)
     fn = getattr(library(name), f"atdn_{name}_occupancy")
-    check(fn(int(out_dtype == torch.bfloat16), ctypes.byref(blocks), device.index or 0),
-          f"{name} occupancy")
+    check(fn(*args, ctypes.byref(blocks), device.index or 0), f"{name} occupancy")
     return blocks.value
 
 

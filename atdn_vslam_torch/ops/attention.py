@@ -14,7 +14,9 @@ Kernel K1 (``csrc/attention_probs.cu``) replaces the TPU kernel
 (the JAX ``keep_padded`` one): probabilities of shape (B, H, W, N_pad)
 in q's type, N_pad = N rounded up to a multiple of 128, the pad columns
 exact zeros, so the P @ V read contracts them against zero-extended
-values and never slices the large matrix.
+values and never slices the large matrix. Its bf16 kernel runs the
+row statistics split over the keys (:func:`_probs_splits`), then K3's
+TMA + wgmma core with a softmax epilogue that merges them.
 
 Kernel K5 (``csrc/flash_attend.cu``) replaces the TPU kernel
 ``atdn_vslam_tpu/ops/attention.py:flash_attend``: out = softmax(scale
@@ -65,6 +67,60 @@ def attention_probs_spatial_plain(
     return p.reshape(b, h, w, -1)
 
 
+#: K1's bf16 kernels: query rows and keys per tile
+_PROBS_TILE = 128
+_LOG2E = 1.4426950408889634
+
+
+def _probs_splits(b: int, n: int, n_kv: int, sms: int) -> int:
+    """Key splits S of K1's bf16 statistics pass for q (b, n, D) and k
+    (b, n_kv, D) on a card with ``sms`` SMs: its grid is (128-row query
+    tiles) x S x b blocks, two of which stay resident per SM, so S is
+    the most that keeps the grid within 2 * sms blocks, at least 1 and
+    at most the number of 128-key tiles, so that every split holds one
+    (split s takes tiles [s T // S, (s + 1) T // S) of the T)."""
+    q_tiles = b * -(-n // _PROBS_TILE)
+    k_tiles = -(-n_kv // _PROBS_TILE)
+    return max(1, min(k_tiles, 2 * sms // q_tiles))
+
+
+def attention_probs_split_plain(
+    q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float | None = None, splits: int = 1
+) -> torch.Tensor:
+    """Plain PyTorch version of K1's bf16 arithmetic, split statistics
+    and their merge, in float32 (the tests hold it against the JAX
+    kernel; no path runs it). With x = scale log2(e) q k^T, split s of
+    ``splits`` takes key tiles [s T // splits, (s + 1) T // splits) of
+    the T tiles of 128 keys and keeps m_s = max x and l_s = sum 2^(x -
+    m_s) per row (-inf and 0 for a split with no key); the merge takes m
+    = max m_s and l = sum of l_s 2^(m_s - m) over the splits with a key;
+    p = 2^(x - m) / l in q's type, zero columns up to N_pad.
+
+    :return: (B, h, w, N_pad) as :func:`attention_probs_spatial_plain`.
+    """
+    b, n, d = q.shape
+    n_kv = k.shape[1]
+    scale = d**-0.5 if scale is None else scale
+    x = torch.matmul(q.float(), k.float().transpose(1, 2)) * (scale * _LOG2E)
+    tiles = -(-n_kv // _PROBS_TILE)
+    ms, ls = [], []
+    for s in range(splits):
+        lo = s * tiles // splits * _PROBS_TILE
+        hi = min((s + 1) * tiles // splits * _PROBS_TILE, n_kv)
+        if lo >= hi:
+            ms.append(x.new_full((b, n), -torch.inf))
+            ls.append(x.new_zeros((b, n)))
+            continue
+        xs = x[..., lo:hi]
+        ms.append(xs.amax(dim=-1))
+        ls.append(torch.exp2(xs - ms[-1][..., None]).sum(dim=-1))
+    m = torch.stack(ms).amax(dim=0)
+    l = sum(torch.where(m_s == -torch.inf, 0.0, l_s * torch.exp2(m_s - m)) for m_s, l_s in zip(ms, ls))
+    p = (torch.exp2(x - m[..., None]) / l[..., None]).to(q.dtype)
+    p = F.pad(p, (0, _round_up(n_kv, _PROBS_TILE) - n_kv))
+    return p.reshape(b, h, w, -1)
+
+
 def attention_probs_spatial(
     q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float | None = None
 ) -> torch.Tensor:
@@ -90,13 +146,18 @@ def attention_probs_spatial(
         raise ValueError(f"head width {d} must be a multiple of 16 and at most 256")
     scale = d**-0.5 if scale is None else scale
     q, k = _kernels.aligned(q), _kernels.aligned(k)
-    n_pad = _round_up(n_kv, 128)
+    n_pad = _round_up(n_kv, _PROBS_TILE)
     out = torch.empty((b, n, n_pad), dtype=q.dtype, device=q.device)
-    m = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    is_bf16 = q.dtype == torch.bfloat16
+    splits = 1
+    if is_bf16:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = _probs_splits(b, n, n_kv, sms)
+    # bf16: the statistics pass's (B, S, N) partial (m, l); float32: m, l
+    ws = torch.empty((b, splits, n, 2), dtype=torch.float32, device=q.device)
     status = _kernels.library("attention_probs").atdn_attention_probs(
-        q.data_ptr(), k.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
-        b, n, n_kv, n_pad, d, float(scale), int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        b, n, n_kv, n_pad, d, splits, float(scale), int(is_bf16),
         q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(status, "attention_probs kernel")

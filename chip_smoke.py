@@ -10,11 +10,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
   2. build: compiles every CUDA kernel of the port with ``nvcc``;
   3. kernels: each kernel against its plain PyTorch version at the
      shapes its path gives it (K1, K2: KITTI 376x1232 -> 47x154 = 7238
-     tokens; K5, K3: 2x KITTI 752x2464 -> 94x308 = 28952 tokens), with
-     its time, the plain version's, one library call's and the least
-     time the card could take (the bound); K5 and K4 also on a ragged
-     batch of two, with their design and the registers and spills that
-     ptxas reported;
+     tokens, K2 also at 2x KITTI; K5, K3: 2x KITTI 752x2464 -> 94x308 =
+     28952 tokens), with its time, the plain version's, one library
+     call's and the least time the card could take (the bound); K5 and
+     K4 also on a ragged batch of two; the Hopper designs (K1, K2, K5,
+     K4, K3, K3t) with the registers and spills that ptxas reported,
+     and K1, K2, K3 and K3t with their blocks per SM (K1 also its key
+     split, and in the kernels line the device time of each pass,
+     profiled after the last phase);
   4. agreement: the streaming runtime on the GPU (float32, kernels) and
      on the CPU (float32, plain versions) give the same poses on a
      small input, and ``RAFTGMA(use_pallas=True)`` (K3, K5) the same
@@ -188,18 +191,78 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, rtol: float, at
     return max_err
 
 
+K1_DESIGN = ("bf16: pass 1 split-KV statistics (q tile resident by TMA, 128-key k tiles in a "
+             "2-stage mbarrier ring, 2 WG x wgmma m64n128k16, online max/sum in registers, "
+             "(B, S, N) partials); pass 2 the K3 core (corr_dot_wgmma.cuh) with a softmax "
+             "epilogue merging the S partials per block, 16-byte streaming row stores")
+
+
+def kernel_ms(fn, device, kernels: dict, reps: int = 20) -> dict:
+    """Mean device time per call of ``fn`` of each kernel it launches,
+    under the label of ``kernels`` (label -> substring of the kernel's
+    name), from ``torch.profiler`` over ``reps`` calls after a warm-up."""
+    if device.type != "cuda":
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    out = {label: 0.0 for label in kernels}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        for label, sub in kernels.items():
+            if sub in e.key:
+                out[label] += us / 1e3 / reps
+    return out
+
+
+def check_ptxas(name: str, reports: dict) -> dict:
+    """Fail when ptxas reported spills or serialised wgmma (C7512) for any
+    of ``reports`` (empty on the CPU, where nothing is built)."""
+    for label, rep in reports.items():
+        if rep and (rep.get("spill_store_bytes", 0) or rep.get("spill_load_bytes", 0)
+                    or any("serialized" in w for w in rep["warnings"])):
+            raise AssertionError(f"{name} {label}: ptxas reported spills or serialised wgmma: {rep}")
+    return reports
+
+
+def k1_inputs(device, hw8, d, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = hw8[0] * hw8[1]
+    # GMA's q arrives pre-scaled by d**-0.5; scores come out with std ~1
+    q = (torch.randn((1, n, d), generator=g, device=device) * d**-0.5).to(dtype)
+    k = torch.randn((1, n, d), generator=g, device=device).to(dtype)
+    return q, k
+
+
+def k1_pass_ms(device, hw8=(47, 154), d=128, seed=0) -> dict:
+    """Device ms of each pass of K1's bf16 kernel on the kernel line's
+    inputs, from ``torch.profiler``: run after every timed phase, since
+    the profiler leaves its hooks on every later launch of the process."""
+    from atdn_vslam_torch.ops.attention import attention_probs_spatial
+
+    q, k = k1_inputs(device, hw8, d, torch.bfloat16, seed)
+    return kernel_ms(lambda: attention_probs_spatial(q, k, *hw8, 1.0), device,
+                     {"stats": "probs_stats_wgmma_kernel", "write": "SoftmaxProbs"})
+
+
 def k1_attention_probs(device, hw8=(47, 154), d=128, dtype=torch.bfloat16, seed=0) -> dict:
+    from atdn_vslam_torch.ops import _kernels
     from atdn_vslam_torch.ops.attention import (
+        _probs_splits,
         attention_probs_spatial,
         attention_probs_spatial_plain,
     )
 
-    g = torch.Generator(device=device).manual_seed(seed)
     h, w = hw8
     n = h * w
-    # GMA's q arrives pre-scaled by d**-0.5; scores come out with std ~1
-    q = (torch.randn((1, n, d), generator=g, device=device) * d**-0.5).to(dtype)
-    k = torch.randn((1, n, d), generator=g, device=device).to(dtype)
+    q, k = k1_inputs(device, hw8, d, dtype, seed)
     got = attention_probs_spatial(q, k, h, w, 1.0)
     ref = attention_probs_spatial_plain(q, k, h, w, 1.0)
     n_pad = got.shape[-1]
@@ -215,7 +278,7 @@ def k1_attention_probs(device, hw8=(47, 154), d=128, dtype=torch.bfloat16, seed=
 
     bytes_moved = 2 * q.numel() * q.element_size() + got.numel() * got.element_size()
     bound_ms, bound_by = bound(bytes_moved, 2.0 * n * n * d, dtype)
-    return {
+    out = {
         "name": "attention_probs",
         "route": "cuda",
         "source": "atdn_vslam_torch/csrc/attention_probs.cu",
@@ -227,6 +290,21 @@ def k1_attention_probs(device, hw8=(47, 154), d=128, dtype=torch.bfloat16, seed=
         "library_ms": time_ms(library, device),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    if device.type == "cuda" and dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        blocks = {"stats": _kernels.blocks_per_sm("attention_probs", device, 1, d),
+                  "write": _kernels.blocks_per_sm("attention_probs", device, 2, d)}
+        if blocks["write"] != 2:
+            raise AssertionError(f"attention_probs: {blocks['write']} write blocks per SM, not 2")
+        out.update({
+            "design": K1_DESIGN, "splits": _probs_splits(1, n, n, sms),
+            "ptxas": check_ptxas("attention_probs", {
+                "stats": ptxas_report("attention_probs", f"probs_stats_wgmma_kernelILi{-(-d // 64)}E"),
+                "write": ptxas_report("attention_probs", "SoftmaxProbs"),
+            }),
+            "blocks_per_sm": blocks,
+        })
+    return out
 
 
 def _in_bound_taps(shapes, coords, radius: int, first_level: int = 0) -> int:
@@ -279,7 +357,15 @@ def grid_sample_windows(levels, coords, radius: int, first_level: int = 0):
     return outs
 
 
-def k2_corr_lookup(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=1, radius=4) -> dict:
+K2_DESIGN = ("one warp per query, all levels: a level's 100 taps over 32 lanes, all loads "
+             "issued first, staged in shared memory as (tap, right neighbour) pairs; per "
+             "level, outputs i, i + 32, ... per lane as consecutive floats")
+
+
+def _k2_case(device, hw8, c, dtype, seed, radius):
+    """K2 on the pyramid of random feature maps at ``hw8`` against its
+    plain version: (pyramid, coords, max abs err, bytes the lookup must
+    move)."""
     from atdn_vslam_torch.ops.corr_lookup import (
         build_corr_pyramid,
         lookup_corr_pyramid,
@@ -287,27 +373,36 @@ def k2_corr_lookup(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=1, r
     )
 
     f1, f2, coords = lookup_inputs(device, hw8, c, dtype, seed)
-    h, w = hw8
     pyramid = build_corr_pyramid(f1, f2, 4, dtype=dtype)
     got = lookup_corr_pyramid(pyramid, coords, radius)
     ref = lookup_corr_pyramid_plain(pyramid, coords, radius)
     if got.shape != ref.shape:
         raise AssertionError(f"corr_lookup: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
-    max_err = check_close("corr_lookup", got, ref, **K2_TOL)
+    max_err = check_close(f"corr_lookup {hw8}", got, ref, **K2_TOL)
+    bytes_moved = (
+        _in_bound_taps([c.shape[-2:] for c in pyramid], coords, radius) * pyramid[0].element_size()
+        + coords.numel() * 4 + got.numel() * got.element_size()
+    )
+    return pyramid, coords, max_err, bytes_moved
 
+
+def k2_corr_lookup(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=1, radius=4,
+                   hw8_2x=(94, 308)) -> dict:
+    """K2 at KITTI (the kernel line's numbers) and at 2x KITTI
+    (``*_2x``: 28952 queries, levels 94x308 ... 11x38)."""
+    from atdn_vslam_torch.ops import _kernels
+    from atdn_vslam_torch.ops.corr_lookup import lookup_corr_pyramid, lookup_corr_pyramid_plain
+
+    pyramid, coords, max_err, bytes_moved = _k2_case(device, hw8, c, dtype, seed, radius)
     span = 2 * radius + 1
-    n = h * w
+    n = hw8[0] * hw8[1]
     views = [corr.reshape(n, 1, *corr.shape[-2:]) for corr in pyramid]
 
     def library():
         return grid_sample_windows(views, coords, radius)
 
-    bytes_moved = (
-        _in_bound_taps([c.shape[-2:] for c in pyramid], coords, radius) * pyramid[0].element_size()
-        + coords.numel() * 4 + got.numel() * got.element_size()
-    )
     bound_ms, bound_by = bound(bytes_moved, 0.0, dtype)
-    return {
+    out = {
         "name": "corr_lookup",
         "route": "cuda",
         "source": "atdn_vslam_torch/csrc/corr_lookup.cu",
@@ -319,6 +414,22 @@ def k2_corr_lookup(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=1, r
         "library_ms": time_ms(library, device),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    pyramid, coords, max_err, bytes_moved = _k2_case(device, hw8_2x, c, dtype, seed, radius)
+    out.update({
+        "shape_2x": [1, hw8_2x[0] * hw8_2x[1], len(pyramid), span * span],
+        "max_abs_err_2x": max_err,
+        "ms_2x": time_ms(lambda: lookup_corr_pyramid(pyramid, coords, radius), device),
+        "bound_ms_2x": bound(bytes_moved, 0.0, dtype)[0],
+    })
+    if device.type == "cuda":
+        out.update({
+            "design": K2_DESIGN,
+            "ptxas": check_ptxas("corr_lookup", {
+                "lookup": ptxas_report("corr_lookup", "corr_lookup_kernelI13__nv_bfloat16"),
+            }),
+            "blocks_per_sm": {"lookup": _kernels.blocks_per_sm("corr_lookup", device, 1)},
+        })
+    return out
 
 
 def k5_flash_attend(device, n=94 * 308, d=128, seed=5) -> dict:
@@ -388,7 +499,7 @@ def corr_dot_occupancy(source: str, device) -> dict:
 
     if device.type != "cuda":
         return {}
-    blocks = {str(dt).split(".")[-1]: _kernels.blocks_per_sm(source, dt, device)
+    blocks = {str(dt).split(".")[-1]: _kernels.blocks_per_sm(source, device, int(dt == torch.bfloat16))
               for dt in (torch.bfloat16, torch.float32)}
     if blocks["bfloat16"] != 2:
         raise AssertionError(f"{source}: {blocks['bfloat16']} blocks per SM for bf16 output, not 2")
@@ -424,7 +535,7 @@ def k3_corr_dot(device, n=94 * 308, c=256, seed=6) -> dict:
         "shape": [1, n, n, c], "dtype": "torch.bfloat16", "tolerance": K3_TOL,
         "max_abs_err": max_err, "ragged_max_abs_err": ragged,
         "design": K3_DESIGN,
-        "ptxas": ptxas_report("corr_dot", "corr_dot_wgmma_kernelI13__nv_bfloat16"),
+        "ptxas": ptxas_report("corr_dot", "ScaleCastI13__nv_bfloat16"),
         "blocks_per_sm": corr_dot_occupancy("corr_dot", device),
         "ms": time_ms(lambda: corr_dot_rowmajor(f1, f2, inv, torch.bfloat16), device),
         "plain_ms": time_ms(lambda: corr_dot_rowmajor_plain(f1, f2, inv, torch.bfloat16), device, reps=5),
@@ -640,7 +751,7 @@ def k3t_corr_dot_tiled(device, hw8=(47, 154), c=256, seed=10) -> dict:
                           if not (f2l.is_contiguous() and f2l.data_ptr() % 16 == 0)],
         "calls": len(levels), "dtype": "torch.bfloat16", "tolerance": K3_TOL, "max_abs_err": max_err,
         "design": K3_DESIGN + "; a non-contiguous f2 staged K-major by a shared-memory transpose",
-        "ptxas": ptxas_report("corr_dot_tiled", "corr_dot_wgmma_kernelI13__nv_bfloat16"),
+        "ptxas": ptxas_report("corr_dot_tiled", "ScaleCastI13__nv_bfloat16"),
         "blocks_per_sm": corr_dot_occupancy("corr_dot_tiled", device),
         "ms": time_ms(lambda: [corr_dot_tiled(f1, f2l, inv) for f2l in levels], device),
         "plain_ms": time_ms(lambda: [corr_dot_tiled_plain(f1, f2l, inv) for f2l in levels], device),
@@ -1148,6 +1259,7 @@ def main(argv=None) -> int:
     emit("entry_points", card=card, **results["entry_points"])
     results["apply_probs_backward"] = k4_backward(device)
     emit("apply_probs_backward", card=card, **results["apply_probs_backward"])
+    kernels[0]["pass_ms"] = k1_pass_ms(device)
 
     # each kernel's launches from the run of the path that drives it
     driver = {"attention_probs": "slice", "corr_lookup": "slice",
@@ -1163,7 +1275,8 @@ def main(argv=None) -> int:
             json.dump(results, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extras = ("design", "ptxas", "blocks_per_sm")
+    extras = ("design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
+              "max_abs_err_2x")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extras if key in k}
                                   for k in kernels]}))
     print(card)

@@ -38,11 +38,18 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w,d,n_kv", [(7, 9, 16, 63), (5, 13, 32, 200), (8, 16, 128, 128)])
+@pytest.mark.parametrize("h,w,d,n_kv", [
+    (7, 9, 16, 63), (5, 13, 32, 200), (8, 16, 128, 128),
+    # n != n_kv: one key, one key short of a tile, one key past it, eight
+    # tiles; head widths 16, 64, 128 and 256 (q resident in four boxes)
+    (3, 5, 256, 1), (9, 15, 64, 127), (10, 13, 128, 129), (4, 7, 16, 1000), (11, 12, 256, 1000),
+])
 def test_attention_probs_kernel(cuda, dtype, h, w, d, n_kv):
     """f32: same float32 softmax up to summation order and the fast
     exp (rtol 1e-5); bf16: both round a float32 softmax, one bf16 ulp
-    (rtol 2^-7). Pad columns are exact zeros, launches are counted."""
+    (rtol 2^-7). Batch 2, so a load reaching past a batch's rows would
+    read the next batch's. Pad columns are exact zeros, launches are
+    counted."""
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.normal(size=(2, h * w, d)).astype(np.float32) * d**-0.5)
     k = torch.from_numpy(rng.normal(size=(2, n_kv, d)).astype(np.float32))
@@ -57,6 +64,49 @@ def test_attention_probs_kernel(cuda, dtype, h, w, d, n_kv):
     assert bool((got[..., n_kv:] == 0).all())
     rtol = 1e-5 if dtype == torch.float32 else 2.0**-7
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-7)
+
+
+@pytest.mark.parametrize("n,n_kv,splits", [(100, 129, 7), (300, 1, 3), (129, 640, 5), (64, 1000, 8)])
+def test_attention_probs_bf16_splits(cuda, n, n_kv, splits):
+    """The bf16 kernel with a given split count, through its C entry: more
+    splits than key tiles (129 keys are two tiles, so five of seven
+    splits hold no key; one key: two of three) merge as if they were
+    absent, and one split per tile; the same result as the plain version
+    within one bf16 ulp (rtol 2^-7), exact-zero pad columns, written
+    into a sentinel buffer with 16 bytes free on either side that no
+    store reaches."""
+    from atdn_vslam_torch.ops import _kernels
+
+    rng = np.random.default_rng(8)
+    d = 64
+    q = torch.from_numpy(rng.normal(size=(2, n, d)).astype(np.float32) * d**-0.5).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(rng.normal(size=(2, n_kv, d)).astype(np.float32)).to(cuda, torch.bfloat16)
+    n_pad = -(-n_kv // 128) * 128
+    ws = torch.empty((2, splits, n, 2), dtype=torch.float32, device=cuda)
+    buf = torch.full((2 * n * n_pad + 16,), -7.0, dtype=torch.bfloat16, device=cuda)
+    status = _kernels.library("attention_probs").atdn_attention_probs(
+        q.data_ptr(), k.data_ptr(), ws.data_ptr(), buf[8:].data_ptr(), 2, n, n_kv, n_pad, d, splits,
+        1.0, 1, 0, torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert status == 0
+    assert bool((buf[:8] == -7.0).all()) and bool((buf[-8:] == -7.0).all())
+    got = buf[8:-8].reshape(2, n, n_pad)
+    assert bool((got[..., n_kv:] == 0).all())
+    ref = attention_probs_spatial_plain(q, k, 1, n, 1.0).reshape(2, n, n_pad)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=1e-7)
+
+
+def test_attention_probs_kernel_is_deterministic(cuda):
+    """Two launches of the bf16 kernel at a split shape give the same
+    bits."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.normal(size=(1, 600, 128)).astype(np.float32) / 128**0.5).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(rng.normal(size=(1, 900, 128)).astype(np.float32)).to(cuda, torch.bfloat16)
+    first = attention_probs_spatial(q, k, 20, 30, 1.0)
+    second = attention_probs_spatial(q, k, 20, 30, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -78,6 +128,33 @@ def test_corr_lookup_kernel(cuda, dtype, h, w):
     assert lookup_corr_pyramid.launches == before + 1
     ref = lookup_corr_pyramid_plain(pyramid, coords, 4)
     assert got.shape == ref.shape == (2, h, w, 324)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("levels", [
+    [(1, 23)],                            # one level of one row
+    [(9, 1), (4, 1)],                     # columns of one element
+    [(6, 11), (3, 5), (1, 3)],            # odd widths: rows at every 2-byte phase
+    [(5, 7), (3, 13), (2, 9), (1, 1)],    # four levels down to 1 x 1
+])
+def test_corr_lookup_kernel_level_shapes(cuda, dtype, levels):
+    """1 to 4 levels of any shape at batch 2 (6 x 7 queries): odd level
+    sizes start the queries' slabs and rows at every 2-byte phase, and
+    levels of one row, one column or one element; coordinates inside,
+    outside and non-finite. Same taps lerped in float32 (1e-5)."""
+    rng = np.random.default_rng(2)
+    h1, w1 = 6, 7
+    pyramid = [torch.from_numpy(rng.normal(size=(2, h1 * w1, hl, wl)).astype(np.float32)).to(cuda, dtype)
+               for hl, wl in levels]
+    coords = rng.uniform(-14, 30, size=(2, h1, w1, 2)).astype(np.float32)
+    coords[1, 2, 3] = (np.inf, 1.0)
+    coords[0, 5, 6] = (3.0, -np.inf)
+    coords = torch.from_numpy(coords).to(cuda)
+    got = lookup_corr_pyramid(pyramid, coords, 4)
+    torch.cuda.synchronize()
+    ref = lookup_corr_pyramid_plain(pyramid, coords, 4)
+    assert got.shape == ref.shape == (2, h1, w1, 81 * len(levels))
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
 
 
