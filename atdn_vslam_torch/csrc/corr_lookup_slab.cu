@@ -19,93 +19,58 @@
 //
 // Bound on an H100 at the KITTI main-path shape (7238 queries, four
 // bf16 levels, r = 4): at most 7238 x 4 x 100 taps x 2 B = 5.8 MB read
-// and 9.4 MB written per call, about 4.5 us at 3.35 TB/s: bytes bound.
-// The TPU kernel sliced an 8-aligned 24-row slab per query out of VMEM,
-// because its dynamic slices must start on a sublane boundary; on
-// Hopper this is a gather, as in K2: one thread per (query, level,
-// window row) reads the two volume rows that window row needs straight
-// from the query's slice of the volume (neighbouring threads share rows
-// through L1) and writes its 2r+1 outputs.
+// and 9.4 MB written per call, about 4.5 us at 3.35 TB/s: bytes bound,
+// and a gather. The TPU kernel sliced an 8-aligned 24-row slab per query
+// out of VMEM, because its dynamic slices must start on a sublane
+// boundary; on Hopper a query's padded level is one contiguous slice, so
+// this is K2's gather (corr_lookup_gather.cuh): one warp per query, all
+// levels, the taps loaded up front with the padded Hp as row pitch and
+// row bound, staged in shared memory as (tap, right neighbour) pairs.
+// The epilogue (RowsThenColumns below) keeps this kernel's arithmetic:
+// per level, lane i computes outputs i, i + 32, ... of its (2r+1)^2
+// consecutive floats, each the two rows' hat-weighted sums at the two
+// columns, then the columns' hat-weighted sum, all in float32.
+// What is left (kernel_variants.py on an H100, KITTI): ~20% over K2 on
+// the same gather. The differences are the epilogue (four hat weights
+// and unfused sums per output, where K2 lerps) and the padded level 0
+// (125 MB against 105); computing the hat weights once per level
+// (lanes 0-8, read back from shared memory) or from float indices
+// measured no faster.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "corr_lookup_gather.cuh"
 
 namespace {
 
-constexpr int MAX_LEVELS = 4;
-constexpr int THREADS = 128;
-
-struct Levels {
-  const void* vol[MAX_LEVELS];
-  int h[MAX_LEVELS];  // padded rows Hp
-  int w[MAX_LEVELS];
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 __device__ __forceinline__ float hat(float t) { return fmaxf(0.0f, 1.0f - fabsf(t)); }
 
-template <typename T, int R>
-__global__ void __launch_bounds__(THREADS)
-slab_kernel(Levels lv, const float* __restrict__ coords, float* __restrict__ out, int n_total,
-            int levels) {
-  constexpr int SPAN = 2 * R + 1;
-  const long t = (long)blockIdx.x * THREADS + threadIdx.x;
-  if (t >= (long)n_total * levels * SPAN) return;
-  const int ia = (int)(t % SPAN);
-  const int l = (int)((t / SPAN) % levels);
-  const long qi = t / ((long)SPAN * levels);
-  const int H = lv.h[l], W = lv.w[l];
-  float* o = out + qi * (levels * SPAN * SPAN) + l * SPAN * SPAN + ia;
-
-  const float scale = 1.0f / (float)(1 << l);
-  const float xc = coords[2 * qi] * scale, yc = coords[2 * qi + 1] * scale;
-  if (!isfinite(xc) || !isfinite(yc)) {
+// rows first with their hat weights, then columns (the TPU kernel's
+// order, :112-131); window row ia lies at y - r + ia, column ic at
+// x + ic - r
+struct RowsThenColumns {
+  template <int R>
+  static __device__ __forceinline__ void store(const float2* pl, float xc, float yc, int H, int W,
+                                               float* o, int lane) {
+    constexpr int SPAN = 2 * R + 1, SIDE = 2 * R + 2, WIN = SPAN * SPAN;
+    const bool finite = isfinite(xc) && isfinite(yc);
+    const int x0 = corr_gather::patch_start<R>(xc, W), y0 = corr_gather::patch_start<R>(yc, H);
 #pragma unroll
-    for (int ic = 0; ic < SPAN; ++ic) o[ic * SPAN] = CUDART_NAN_F;
-    return;
+    for (int i = 0; i < (WIN + 31) / 32; ++i) {
+      const int k = lane + 32 * i;
+      if (k < WIN) {
+        const int ic = k / SPAN, ia = k % SPAN;
+        const int h0 = y0 + ia;
+        const float ty = (yc - (float)R) + (float)ia;
+        const float wy0 = hat(ty - (float)h0), wy1 = hat(ty - (float)(h0 + 1));
+        const float tx = xc + (float)(ic - R);
+        const float wx0 = hat(tx - (float)(x0 + ic)), wx1 = hat(tx - (float)(x0 + ic + 1));
+        const float2 a = pl[ia * SIDE + ic], c = pl[(ia + 1) * SIDE + ic];
+        const float left = __fadd_rn(__fmul_rn(wy0, a.x), __fmul_rn(wy1, c.x));
+        const float right = __fadd_rn(__fmul_rn(wy0, a.y), __fmul_rn(wy1, c.y));
+        o[k] = finite ? __fadd_rn(__fmul_rn(left, wx0), __fmul_rn(right, wx1)) : CUDART_NAN_F;
+      }
+    }
   }
-  // clamp before the int conversion: any start outside this range
-  // reads only out-of-bounds taps, which are zero either way
-  const int x0 = (int)fminf(fmaxf(floorf(xc), -2.0f * SPAN), (float)(W + SPAN)) - R;
-  const int h0 = (int)fminf(fmaxf(floorf(yc), -2.0f * SPAN), (float)(H + SPAN)) - R + ia;
-  const int h1 = h0 + 1;
-  const T* vol = static_cast<const T*>(lv.vol[l]) + qi * (long)H * W;
-  const bool ok0 = h0 >= 0 && h0 < H, ok1 = h1 >= 0 && h1 < H;
-
-  // the rows first: window row ia at y - r + ia
-  const float ty = (yc - (float)R) + (float)ia;
-  const float wy0 = hat(ty - (float)h0), wy1 = hat(ty - (float)h1);
-  float row[SPAN + 1];
-#pragma unroll
-  for (int j = 0; j <= SPAN; ++j) {
-    const int w = x0 + j;
-    const bool okx = w >= 0 && w < W;
-    const float v0 = (okx && ok0) ? to_float(vol[(long)h0 * W + w]) : 0.0f;
-    const float v1 = (okx && ok1) ? to_float(vol[(long)h1 * W + w]) : 0.0f;
-    row[j] = __fadd_rn(__fmul_rn(wy0, v0), __fmul_rn(wy1, v1));
-  }
-  // then the columns: window column ic at x + ic - r
-#pragma unroll
-  for (int ic = 0; ic < SPAN; ++ic) {
-    const float tx = xc + (float)(ic - R);
-    const float wx0 = hat(tx - (float)(x0 + ic)), wx1 = hat(tx - (float)(x0 + ic + 1));
-    o[ic * SPAN] = __fadd_rn(__fmul_rn(row[ic], wx0), __fmul_rn(row[ic + 1], wx1));
-  }
-}
-
-template <typename T>
-int launch(const Levels& lv, const float* coords, float* out, int n_total, int levels, int radius,
-           cudaStream_t stream) {
-  if (radius != 4) return (int)cudaErrorInvalidValue;
-  const long threads = (long)n_total * levels * (2 * 4 + 1);
-  const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-  slab_kernel<T, 4><<<blocks, THREADS, 0, stream>>>(lv, coords, out, n_total, levels);
-  return (int)cudaGetLastError();
-}
+};
 
 }  // namespace
 
@@ -118,13 +83,14 @@ extern "C" int atdn_corr_lookup_slab(const void* vol0, const void* vol1, const v
                                      int hp1, int hp2, int hp3, int w0, int w1, int w2, int w3,
                                      int b, int n, int levels, int radius, int is_bf16, int device,
                                      void* stream) {
-  if (levels < 1 || levels > MAX_LEVELS || b < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  Levels lv = {{vol0, vol1, vol2, vol3}, {hp0, hp1, hp2, hp3}, {w0, w1, w2, w3}};
-  auto st = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(coords);
-  float* o = static_cast<float*>(out);
-  if (is_bf16) return launch<__nv_bfloat16>(lv, c, o, b * n, levels, radius, st);
-  return launch<float>(lv, c, o, b * n, levels, radius, st);
+  const void* vol[] = {vol0, vol1, vol2, vol3};
+  const int h[] = {hp0, hp1, hp2, hp3}, w[] = {w0, w1, w2, w3};
+  return corr_gather::launch<RowsThenColumns>(vol, h, w, coords, out, b, n, levels, radius,
+                                              is_bf16, device, stream);
+}
+
+// blocks of the radius-4 kernel resident per SM, bf16 (is_bf16 = 1) or
+// float32 volumes; returns a cudaError_t
+extern "C" int atdn_corr_lookup_slab_occupancy(int is_bf16, int* blocks, int device) {
+  return corr_gather::occupancy<RowsThenColumns>(is_bf16, blocks, device);
 }

@@ -61,6 +61,8 @@ _SIGNATURES = {
         # vol0..3, coords, out, h0..3, w0..3, b, n, levels, first_level, radius,
         # is_bf16, device, stream
         "atdn_corr_lookup_nlanes": (_P,) * 6 + (_I,) * 8 + (_I,) * 7 + (_P,),
+        # is_bf16, blocks (out), device
+        "atdn_corr_lookup_nlanes_occupancy": (_I, _IP, _I),
     },
     "apply_probs": {
         # p, v, out, ws, counters, b, m, kp, nv, dv, grid, is_bf16, device, stream
@@ -69,6 +71,8 @@ _SIGNATURES = {
     "corr_lookup_slab": {
         # vol0..3, coords, out, hp0..3, w0..3, b, n, levels, radius, is_bf16, device, stream
         "atdn_corr_lookup_slab": (_P,) * 6 + (_I,) * 8 + (_I,) * 6 + (_P,),
+        # is_bf16, blocks (out), device
+        "atdn_corr_lookup_slab_occupancy": (_I, _IP, _I),
     },
     "corr_dot_tiled": {
         # f1, f2, scratch, out, b, n, hl, wl, c, sb, sh, sw, sc, inv_sqrt_c, in_bf16,
@@ -173,7 +177,9 @@ def blocks_per_sm(name: str, device: torch.device, *args: int) -> int:
     entry ``atdn_<name>_occupancy(*args, &blocks, device)``: for
     ``corr_dot`` and ``corr_dot_tiled`` args = (out_bf16,) of the
     bf16-input kernel; for ``attention_probs`` (pass, d) of the bf16
-    kernels; for ``corr_lookup`` (is_bf16,)."""
+    kernels; for ``corr_lookup``, ``corr_lookup_slab`` and
+    ``corr_lookup_nlanes`` (is_bf16,), the last for its three-level
+    block."""
     blocks = ctypes.c_int(0)
     fn = getattr(library(name), f"atdn_{name}_occupancy")
     check(fn(*args, ctypes.byref(blocks), device.index or 0), f"{name} occupancy")

@@ -10,14 +10,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
   2. build: compiles every CUDA kernel of the port with ``nvcc``;
   3. kernels: each kernel against its plain PyTorch version at the
      shapes its path gives it (K1, K2: KITTI 376x1232 -> 47x154 = 7238
-     tokens, K2 also at 2x KITTI; K5, K3: 2x KITTI 752x2464 -> 94x308 =
-     28952 tokens), with its time, the plain version's, one library
-     call's and the least time the card could take (the bound); K5 and
-     K4 also on a ragged batch of two; the Hopper designs (K1, K2, K5,
-     K4, K3, K3t) with the registers and spills that ptxas reported,
-     and K1, K2, K3 and K3t with their blocks per SM (K1 also its key
-     split, and in the kernels line the device time of each pass,
-     profiled after the last phase);
+     tokens, K2 and K2n also at 2x KITTI; K5, K3: 2x KITTI 752x2464 ->
+     94x308 = 28952 tokens), with its time, the plain version's, one
+     library call's and the least time the card could take (the bound);
+     K5 and K4 also on a ragged batch of two; the Hopper designs (K1,
+     K2, K5, K4, K3, K2n, K2s, K3t) with the registers and spills that
+     ptxas reported, and K1, K2, K3, K2n, K2s and K3t with their blocks
+     per SM (K1 also its key split, and in the kernels line the device
+     time of each pass, profiled after the last phase);
   4. agreement: the streaming runtime on the GPU (float32, kernels) and
      on the CPU (float32, plain versions) give the same poses on a
      small input, and ``RAFTGMA(use_pallas=True)`` (K3, K5) the same
@@ -544,11 +544,16 @@ def k3_corr_dot(device, n=94 * 308, c=256, seed=6) -> dict:
     }
 
 
-def k2n_nlanes(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=7, radius=4) -> dict:
-    """K2n over the three small levels of the KITTI nlanes pyramid, one
-    launch, against its plain version; the library yardstick is
-    ``grid_sample`` per level on (N, 1, Hl, Wl) views of the same
-    volumes."""
+K2N_DESIGN = ("lanes on queries: a block of 32 consecutive queries, one warp per (level, three "
+              "window rows) task, three levels' 9 tasks at once; each lane issues its four tap "
+              "rows' 40 loads first; results staged in a shared [32][243] tile, written as the "
+              "block's contiguous output run in 16-byte stores")
+
+
+def _k2n_case(device, hw8, c, dtype, seed, radius):
+    """K2n over levels 1-3 of the nlanes pyramid of random feature maps
+    at ``hw8`` against its plain version: (levels, coords (1, N, 2), max
+    abs err, bytes the lookup must move)."""
     from atdn_vslam_torch.ops.corr_lookup_nlanes import (
         build_corr_pyramid_nlanes,
         nlanes_lookup_level_plain,
@@ -558,20 +563,37 @@ def k2n_nlanes(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=7, radiu
     f1, f2, coords = lookup_inputs(device, hw8, c, dtype, seed)
     n = hw8[0] * hw8[1]
     vols = build_corr_pyramid_nlanes(f1, f2, 4, dtype)[1:]
+    del f1, f2
     flat = coords.reshape(1, n, 2)
-
-    def plain():
-        return torch.cat([nlanes_lookup_level_plain(v, flat, i + 1, radius) for i, v in enumerate(vols)], -1)
-
     got = nlanes_lookup_levels(vols, flat, 1, radius)
-    max_err = check_close("corr_lookup_nlanes", got, plain(), **K2N_TOL)
-    views = [v.permute(0, 3, 1, 2).reshape(n, 1, *v.shape[1:3]) for v in vols]
+    ref = torch.cat([nlanes_lookup_level_plain(v, flat, i + 1, radius) for i, v in enumerate(vols)], -1)
+    max_err = check_close(f"corr_lookup_nlanes {hw8}", got, ref, **K2N_TOL)
     bytes_moved = (
         _in_bound_taps([v.shape[1:3] for v in vols], coords, radius, 1) * vols[0].element_size()
         + coords.numel() * 4 + got.numel() * got.element_size()
     )
+    return vols, flat, max_err, bytes_moved
+
+
+def k2n_nlanes(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=7, radius=4,
+               hw8_2x=(94, 308)) -> dict:
+    """K2n over the three small levels of the KITTI nlanes pyramid, one
+    launch, against its plain version, and at 2x KITTI (``*_2x``: levels
+    47x154, 23x77, 11x38 over 28952 queries, past L2); the library
+    yardstick is ``grid_sample`` per level on (N, 1, Hl, Wl) views of the
+    same volumes."""
+    from atdn_vslam_torch.ops import _kernels
+    from atdn_vslam_torch.ops.corr_lookup_nlanes import nlanes_lookup_level_plain, nlanes_lookup_levels
+
+    vols, flat, max_err, bytes_moved = _k2n_case(device, hw8, c, dtype, seed, radius)
+    n = hw8[0] * hw8[1]
+
+    def plain():
+        return torch.cat([nlanes_lookup_level_plain(v, flat, i + 1, radius) for i, v in enumerate(vols)], -1)
+
+    views = [v.permute(0, 3, 1, 2).reshape(n, 1, *v.shape[1:3]) for v in vols]
     bound_ms, bound_by = bound(bytes_moved, 0.0, dtype)
-    return {
+    out = {
         "name": "corr_lookup_nlanes",
         "route": "cuda",
         "source": "atdn_vslam_torch/csrc/corr_lookup_nlanes.cu",
@@ -581,9 +603,27 @@ def k2n_nlanes(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=7, radiu
         "max_abs_err": max_err,
         "ms": time_ms(lambda: nlanes_lookup_levels(vols, flat, 1, radius), device),
         "plain_ms": time_ms(plain, device),
-        "library_ms": time_ms(lambda: grid_sample_windows(views, coords, radius, 1), device),
+        "library_ms": time_ms(lambda: grid_sample_windows(views, flat, radius, 1), device),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    del vols, views
+    vols, flat, max_err, bytes_moved = _k2n_case(device, hw8_2x, c, dtype, seed, radius)
+    out.update({
+        "shape_2x": [1, hw8_2x[0] * hw8_2x[1], len(vols), (2 * radius + 1) ** 2],
+        "levels_2x": [list(v.shape[1:3]) for v in vols],
+        "max_abs_err_2x": max_err,
+        "ms_2x": time_ms(lambda: nlanes_lookup_levels(vols, flat, 1, radius), device),
+        "bound_ms_2x": bound(bytes_moved, 0.0, dtype)[0],
+    })
+    if device.type == "cuda":
+        out.update({
+            "design": K2N_DESIGN,
+            "ptxas": check_ptxas("corr_lookup_nlanes", {
+                "lookup": ptxas_report("corr_lookup_nlanes", "nlanes_kernelI13__nv_bfloat16"),
+            }),
+            "blocks_per_sm": {"lookup": _kernels.blocks_per_sm("corr_lookup_nlanes", device, 1)},
+        })
+    return out
 
 
 def k4_inputs(device, hw8, d, seed):
@@ -666,10 +706,17 @@ def k4_backward(device, hw8=(47, 154), d=128, seed=8) -> dict:
             "pad_columns_zero": True}
 
 
+K2S_DESIGN = ("K2's gather (corr_lookup_gather.cuh): one warp per query, all levels, a level's "
+              "100 taps over 32 lanes with the padded Hp as row pitch and bound, all loads issued "
+              "first, staged as (tap, right neighbour) pairs; per level, outputs i, i + 32, ... "
+              "per lane as consecutive floats, rows then columns with hat weights in float32")
+
+
 def k2s_slab(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=9, radius=4) -> dict:
     """K2s over the KITTI pyramid, rows padded once (level 0: 47 -> 56),
     against its plain version; the library yardstick is ``grid_sample``
     per level on the unpadded levels."""
+    from atdn_vslam_torch.ops import _kernels
     from atdn_vslam_torch.ops.corr_lookup import build_corr_pyramid
     from atdn_vslam_torch.ops.corr_lookup_slab import (
         lookup_corr_pyramid_slab,
@@ -690,7 +737,7 @@ def k2s_slab(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=9, radius=
         + coords.numel() * 4 + got.numel() * got.element_size()
     )
     bound_ms, bound_by = bound(bytes_moved, 0.0, dtype)
-    return {
+    out = {
         "name": "corr_lookup_slab",
         "route": "cuda",
         "source": "atdn_vslam_torch/csrc/corr_lookup_slab.cu",
@@ -703,6 +750,15 @@ def k2s_slab(device, hw8=(47, 154), c=256, dtype=torch.bfloat16, seed=9, radius=
         "library_ms": time_ms(lambda: grid_sample_windows(views, coords, radius), device),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
+    if device.type == "cuda":
+        out.update({
+            "design": K2S_DESIGN,
+            "ptxas": check_ptxas("corr_lookup_slab", {
+                "lookup": ptxas_report("corr_lookup_slab", "corr_lookup_kernelI13__nv_bfloat16"),
+            }),
+            "blocks_per_sm": {"lookup": _kernels.blocks_per_sm("corr_lookup_slab", device, 1)},
+        })
+    return out
 
 
 def k3t_inputs(device, hw8, c, seed):

@@ -4,18 +4,21 @@
     python3 kernel_variants.py NAME DIR [DIR ...]
 
 NAME is one of flash_attend, apply_probs, corr_dot, corr_dot_tiled,
-attention_probs, corr_lookup.
+attention_probs, corr_lookup, corr_lookup_nlanes, corr_lookup_slab.
 
 Each DIR holds an edited copy of ``atdn_vslam_torch/csrc/<name>.cu``
 and of every header it includes (``hopper.cuh``; for ``corr_dot`` and
 ``corr_dot_tiled`` also ``corr_dot_wgmma.cuh`` and
-``corr_dot_tiles.cuh``; for ``attention_probs`` ``corr_dot_wgmma.cuh``).
+``corr_dot_tiles.cuh``; for ``attention_probs`` ``corr_dot_wgmma.cuh``;
+for ``corr_lookup`` and ``corr_lookup_slab`` ``corr_lookup_gather.cuh``).
 Each copy is built with the port's ``nvcc`` flags, its C entry point
 called through ctypes on chip_smoke's inputs (K5 and K3 at 2x KITTI,
 28952 tokens; K4 on K1's KITTI output; K3t on the four KITTI levels,
 level 0 the NHWC view of a channels-first map, staged into a scratch
 buffer as the wrapper does; K1 at KITTI with the wrapper's split count;
-K2 on the KITTI and the 2x KITTI pyramids), checked against the plain
+K2 on the KITTI and the 2x KITTI pyramids; K2n on levels 1-3 of the
+KITTI and the 2x KITTI nlanes pyramids; K2s on the row-padded KITTI
+pyramid), checked against the plain
 version, and timed with chip_smoke's ``time_ms`` (K4 with a per-call
 zeroed counter buffer); the last lines time the tree's own wrapper. One
 JSON line per copy and input: ptxas's register, spill and wgmma lines,
@@ -54,7 +57,8 @@ def build(name: str, path: str) -> tuple[ctypes.CDLL | None, list[str]]:
     return lib, log
 
 
-NAMES = ("flash_attend", "apply_probs", "corr_dot", "corr_dot_tiled", "attention_probs", "corr_lookup")
+NAMES = ("flash_attend", "apply_probs", "corr_dot", "corr_dot_tiled", "attention_probs", "corr_lookup",
+         "corr_lookup_nlanes", "corr_lookup_slab")
 
 
 def cases(name: str, dev: torch.device, stream: int) -> list[dict]:
@@ -65,6 +69,8 @@ def cases(name: str, dev: torch.device, stream: int) -> list[dict]:
     from atdn_vslam_torch.ops import attention as att
     from atdn_vslam_torch.ops import corr_dot_tiled as k3t
     from atdn_vslam_torch.ops import corr_lookup
+    from atdn_vslam_torch.ops import corr_lookup_nlanes as k2n
+    from atdn_vslam_torch.ops import corr_lookup_slab as k2s
 
     if name == "flash_attend":
         g = torch.Generator(device=dev).manual_seed(5)
@@ -136,6 +142,37 @@ def cases(name: str, dev: torch.device, stream: int) -> list[dict]:
                 "tree": lambda pyr=pyr, coords=coords: corr_lookup.lookup_corr_pyramid(pyr, coords, 4),
             })
         return result
+    if name == "corr_lookup_nlanes":
+        result = []
+        for label, hw8 in (("KITTI", (47, 154)), ("2x", (94, 308))):
+            f1, f2, coords = chip_smoke.lookup_inputs(dev, hw8, 256, torch.bfloat16, 7)
+            n = hw8[0] * hw8[1]
+            vols = k2n.build_corr_pyramid_nlanes(f1, f2, 4, torch.bfloat16)[1:]
+            del f1, f2
+            flat = coords.reshape(1, n, 2)
+            out = torch.empty((1, n, 243), dtype=torch.float32, device=dev)
+            result.append({
+                "label": label, "out": lambda out=out: out,
+                "ref": torch.cat([k2n.nlanes_lookup_level_plain(v, flat, i + 1, 4)
+                                  for i, v in enumerate(vols)], -1),
+                "call": lambda fn, vols=vols, flat=flat, out=out, n=n: fn(
+                    *(v.data_ptr() for v in vols), None, flat.data_ptr(), out.data_ptr(),
+                    *(v.shape[1] for v in vols), 0, *(v.shape[2] for v in vols), 0, 1, n, 3, 1, 4,
+                    1, 0, stream),
+                "tree": lambda vols=vols, flat=flat: k2n.nlanes_lookup_levels(vols, flat, 1, 4),
+            })
+        return result
+    if name == "corr_lookup_slab":
+        f1, f2, coords = chip_smoke.lookup_inputs(dev, (47, 154), 256, torch.bfloat16, 9)
+        padded, rows = k2s.pad_pyramid_for_slab(corr_lookup.build_corr_pyramid(f1, f2, 4, dtype=torch.bfloat16))
+        flat = coords.reshape(-1, 2).contiguous()
+        out = torch.empty((1, 47, 154, 324), dtype=torch.float32, device=dev)
+        return [{"label": "KITTI", "out": lambda: out,
+                 "ref": k2s.lookup_corr_pyramid_slab_plain(padded, coords, 4, orig_rows=rows),
+                 "call": lambda fn: fn(*(v.data_ptr() for v in padded), flat.data_ptr(), out.data_ptr(),
+                                       *(v.shape[2] for v in padded), *(v.shape[3] for v in padded),
+                                       1, 47 * 154, 4, 4, 1, 0, stream),
+                 "tree": lambda: k2s.lookup_corr_pyramid_slab(padded, coords, 4, orig_rows=rows)}]
     probs, v, _ = chip_smoke.k4_inputs(dev, (47, 154), 128, 8)
     b, h, w, kp = probs.shape
     out = torch.empty((b, h, w, 128), dtype=torch.bfloat16, device=dev)
@@ -168,7 +205,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tol = {"flash_attend": chip_smoke.K5_TOL, "apply_probs": chip_smoke.K4_TOL,
-           "attention_probs": chip_smoke.K1_TOL, "corr_lookup": chip_smoke.K2_TOL}.get(name, chip_smoke.K3_TOL)
+           "attention_probs": chip_smoke.K1_TOL, "corr_lookup": chip_smoke.K2_TOL,
+           "corr_lookup_nlanes": chip_smoke.K2N_TOL, "corr_lookup_slab": chip_smoke.K2S_TOL,
+           }.get(name, chip_smoke.K3_TOL)
     runs = cases(name, dev, stream)
     for path in dirs:
         lib, log = build(name, path)

@@ -91,6 +91,56 @@ def test_nlanes_pyramid_lookup_launches(cuda):
     assert got.shape == (1, 16, 24, 324)
 
 
+def _nlanes_volumes(seed, b, n, shapes, device, dtype):
+    """Random (B, Hl, Wl, N) levels of the given (rows, columns)."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((b, hl, wl, n), generator=g).to(device, dtype) for hl, wl in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("first_level", [0, 1])
+def test_nlanes_kernel_levels(cuda, dtype, levels, first_level):
+    """One to four levels from level 0 or 1 (a fourth level's warp tasks
+    go round the block again) over batch 2 of 45 queries: the second
+    block's 32 queries straddle the batch boundary and the last block is
+    ragged. Levels of odd, one-row and one-column shapes. The same sums
+    and roundings as the plain version: 1e-6; NaN windows for
+    non-finite coordinates."""
+    b, h, w = 2, 5, 9
+    n = h * w
+    vols = _nlanes_volumes(20 + levels, b, n, [(11, 17), (1, 9), (6, 1), (3, 4)][:levels], cuda, dtype)
+    coords = _coords(21, b, h, w, cuda).reshape(b, n, 2)
+    before = nlanes_lookup_levels.launches
+    got = nlanes_lookup_levels(vols, coords, first_level, 4)
+    torch.cuda.synchronize()
+    assert nlanes_lookup_levels.launches == before + 1
+    ref = torch.cat([nlanes_lookup_level_plain(v, coords, first_level + i, 4) for i, v in enumerate(vols)], -1)
+    assert got.shape == ref.shape == (b, n, 81 * levels)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6, equal_nan=True)
+    assert bool(got[0, 1].isnan().all()) and bool(got[0, 2].isnan().all())
+
+
+def test_nlanes_kernel_output_at_any_alignment(cuda):
+    """The block writes its output run in 16-byte stores only when the
+    output is 16-byte aligned, else in 4-byte stores: the C entry called
+    on an output that starts 4 bytes past an aligned address."""
+    from atdn_vslam_torch.ops import _kernels
+
+    b, n = 2, 70
+    vols = _nlanes_volumes(22, b, n, [(23, 77), (11, 38), (5, 19)], cuda, torch.bfloat16)
+    coords = _coords(23, b, 7, 10, cuda).reshape(b, n, 2) * 3.0
+    buf = torch.full((b * n * 243 + 1,), 7.0, device=cuda)
+    status = _kernels.library("corr_lookup_nlanes").atdn_corr_lookup_nlanes(
+        *(v.data_ptr() for v in vols), None, coords.data_ptr(), buf[1:].data_ptr(),
+        23, 11, 5, 0, 77, 38, 19, 0, b, n, 3, 1, 4, 1, 0, torch.cuda.current_stream().cuda_stream,
+    )
+    torch.cuda.synchronize()
+    assert status == 0 and float(buf[0]) == 7.0
+    ref = torch.cat([nlanes_lookup_level_plain(v, coords, i + 1, 4) for i, v in enumerate(vols)], -1)
+    torch.testing.assert_close(buf[1:].reshape(b, n, 243), ref, rtol=1e-6, atol=1e-6, equal_nan=True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,w,d,dv,kp", [
     (1, 5, 9, 16, 32, None), (2, 7, 20, 32, 16, None), (1, 13, 81, 16, 128, None),
@@ -182,6 +232,48 @@ def test_slab_kernel(cuda, dtype, h, w):
     ref = lookup_corr_pyramid_slab_plain(padded, coords, 4, orig_rows=rows)
     assert got.shape == ref.shape == (2, h, w, 324)
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w", [(47, 9), (25, 11)])
+def test_slab_kernel_padded_rows(cuda, dtype, h, w):
+    """Levels padded by more rows than the window reaches (level 0: 47
+    -> 56 and 25 -> 32 rows), batch 2 and a query count that is not a
+    multiple of the block's 8 queries; coordinates reach the padding
+    rows (zeros read from memory) and past them: 1e-6 against the plain
+    version, and the same windows as K2's plain lookup on the unpadded
+    levels (both are grid_sample's zero padding)."""
+    f1, f2 = _feats(8, 2, h, w, 16, cuda, dtype)
+    pyramid = build_corr_pyramid(f1, f2, 4, dtype=dtype)
+    padded, rows = pad_pyramid_for_slab(pyramid)
+    assert padded[0].shape[2] > rows[0]
+    coords = _coords(9, 2, h, w, cuda)
+    got = lookup_corr_pyramid_slab(padded, coords, 4, orig_rows=rows)
+    torch.cuda.synchronize()
+    ref = lookup_corr_pyramid_slab_plain(padded, coords, 4, orig_rows=rows)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(got, lookup_corr_pyramid(pyramid, coords, 4), rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("kernel", ["nlanes", "slab"])
+def test_lookup_kernels_are_deterministic(cuda, kernel):
+    """Every output is one lane's fixed sequence of float32 operations:
+    two launches give the same bits, NaN windows included."""
+    b, h, w = 2, 23, 31
+    f1, f2 = _feats(10, b, h, w, 32, cuda, torch.bfloat16)
+    coords = _coords(11, b, h, w, cuda)
+    if kernel == "nlanes":
+        pyr = build_corr_pyramid_nlanes(f1, f2, 4)[1:]
+        flat = coords.reshape(b, h * w, 2)
+        run = lambda: nlanes_lookup_levels(pyr, flat, 1, 4)  # noqa: E731
+    else:
+        padded, rows = pad_pyramid_for_slab(build_corr_pyramid(f1, f2, 4, dtype=torch.bfloat16))
+        run = lambda: lookup_corr_pyramid_slab(padded, coords, 4, orig_rows=rows)  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert bool(first.isnan().any())
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 @pytest.mark.parametrize("in_dtype,out_dtype", [
