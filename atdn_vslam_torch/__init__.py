@@ -7,14 +7,20 @@ kernel (``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use).
 This package never imports JAX or the JAX package.
 
 Ported so far: the streaming odometry step (``slam.SlamRuntime`` in
-odometry mode) with RAFTGMA in test mode and ATDNVO.
+odometry mode) with RAFTGMA in test mode and ATDNVO; the keyframe map
+(MappingVAE, trained by ``end_odometry``) and relocalisation against it;
+the reference checkpoint loader.
 
   geometry/   SE(3) pose math
-  models/     ATDNVO, the GMA flow network, builders from config
+  models/     ATDNVO, the GMA flow network, MappingVAE, the factory
+              that makes them from a config
   ops/        attention probabilities (kernel K1), correlation pyramid
               and window lookup (kernel K2), bilinear sampling, convex
               upsampling, padding, the kernel build
   slam/       runtime state machine and keyframe store
+  training/   MappingVAE training and its losses
+  cli/        train_mapping
+  checkpoint.py  reference .pth -> state_dict
   convert.py  JAX variables -> state_dict
 """
 

@@ -4,8 +4,9 @@
 Input trees are nested dicts of arrays, ``{"params": ..., "batch_stats":
 ...}`` as flax's ``init`` returns them; outputs are ``state_dict``s of
 CPU float32 tensors with the reference's key names, which load into
-:class:`~atdn_vslam_torch.models.flow.network.RAFTGMA` and
-:class:`~atdn_vslam_torch.models.odometry.ATDNVO` with ``strict=True``.
+:class:`~atdn_vslam_torch.models.flow.network.RAFTGMA`,
+:class:`~atdn_vslam_torch.models.odometry.ATDNVO` and
+:class:`~atdn_vslam_torch.models.mapping.MappingVAE` with ``strict=True``.
 What is inverted:
 
   * conv kernels (kH, kW, I, O) -> (O, I, kH, kW), dense (I, O) -> (O, I);
@@ -16,7 +17,11 @@ What is inverted:
     ``weight_hh``, the whole bias on ``bias_hh`` and zeros on ``bias_ih``;
   * the ATDNVO Linear's input order, HWC (JAX) -> CHW (reference);
   * the correlation window of ``convc1``'s input channels, dy-major
-    (JAX) -> dx-major (reference).
+    (JAX) -> dx-major (reference);
+  * flax's ``nn.ConvTranspose`` kernel (kH, kW, I, O), which correlates
+    the dilated input with the kernel as stored, -> torch's
+    ``ConvTranspose2d`` weight (I, O, kH, kW), which flips it spatially:
+    the map flips kH and kW.
 """
 
 from __future__ import annotations
@@ -145,6 +150,13 @@ def _conv_block(sd, key: str, params: dict, stats: dict) -> None:
     _put_bn(sd, f"{key}.bn", params["BatchNorm_0"], stats["BatchNorm_0"])
 
 
+def _residual_block(sd, key: str, params: dict, stats: dict) -> None:
+    _conv_block(sd, f"{key}.conv.0", params["ConvBlock_0"], stats["ConvBlock_0"])
+    _conv_block(sd, f"{key}.conv.1", params["ConvBlock_1"], stats["ConvBlock_1"])
+    _put_conv(sd, f"{key}.skip_layer", params["Conv_0"])
+    _put_bn(sd, f"{key}.out_block.1", params["BatchNorm_0"], stats["BatchNorm_0"])
+
+
 def _lstm(sd, key: str, params: dict) -> None:
     gates = "ifgo"
     sd[f"{key}.weight_ih"] = _t(np.concatenate([_np(params[f"i{g}"]["kernel"]).T for g in gates]))
@@ -175,12 +187,7 @@ def atdnvo_state_dict_from_jax(
     _conv_block(sd, "encoder_CNN.1", enc["ConvBlock_0"], enc_s["ConvBlock_0"])
     for i in range(4):
         name = f"ResidualConvBlock_{i}"
-        p, s = enc[name], enc_s[name]
-        key = f"encoder_CNN.{i + 2}"
-        _conv_block(sd, f"{key}.conv.0", p["ConvBlock_0"], s["ConvBlock_0"])
-        _conv_block(sd, f"{key}.conv.1", p["ConvBlock_1"], s["ConvBlock_1"])
-        _put_conv(sd, f"{key}.skip_layer", p["Conv_0"])
-        _put_bn(sd, f"{key}.out_block.1", p["BatchNorm_0"], s["BatchNorm_0"])
+        _residual_block(sd, f"encoder_CNN.{i + 2}", enc[name], enc_s[name])
     _conv_block(sd, "encoder_CNN.6", enc["ConvBlock_1"], enc_s["ConvBlock_1"])
     # JAX flattens (H, W, C), the reference (C, H, W)
     c, h, w = encoder_feature_shape(image_hw)
@@ -196,4 +203,38 @@ def atdnvo_state_dict_from_jax(
         _linear(sd, f"{ref_head}.0.linear", head["LinearBlock_0"]["Dense_0"])
         _linear(sd, f"{ref_head}.1.linear", head["LinearBlock_1"]["Dense_0"])
         _linear(sd, f"{ref_head}.2", head["Dense_0"])
+    return sd
+
+
+# ---------------------------------------------------------------------
+# MappingVAE
+# ---------------------------------------------------------------------
+
+
+def _transposed_conv_block(sd, key: str, params: dict, stats: dict) -> None:
+    _conv_block(sd, f"{key}.conv", params["ConvBlock_0"], stats["ConvBlock_0"])
+    tconv = params["ConvTranspose_0"]
+    # flax correlates with the kernel as stored, torch flips it
+    sd[f"{key}.tconv.weight"] = _t(np.transpose(_np(tconv["kernel"])[::-1, ::-1], (2, 3, 0, 1)))
+    sd[f"{key}.tconv.bias"] = _t(tconv["bias"])
+    _put_bn(sd, f"{key}.bn", params["BatchNorm_0"], stats["BatchNorm_0"])
+    _put_conv(sd, f"{key}.skip_layer", params["Conv_0"])
+    _put_bn(sd, f"{key}.out_block.1", params["BatchNorm_1"], stats["BatchNorm_1"])
+
+
+def mapping_state_dict_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """MappingVAE flax variables -> port ``state_dict``."""
+    params, stats = tree["params"], tree["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+    _conv_block(sd, "stem", params["stem"], stats["stem"])
+    downs = sorted((k for k in params if k.startswith("down_")), key=lambda k: int(k[5:]))
+    for i, name in enumerate(downs):
+        _residual_block(sd, f"down.{i}", params[name], stats[name])
+    _put_conv(sd, "mean_lin", params["mean_lin"])
+    if "sigma_lin" in params:
+        _put_conv(sd, "sigma_lin", params["sigma_lin"])
+    ups = sorted((k for k in params if k.startswith("up_")), key=lambda k: int(k[3:]))
+    for i, name in enumerate(ups):
+        _transposed_conv_block(sd, f"up.{i}", params[name], stats[name])
+    _put_conv(sd, "out_conv", params["out_conv"])
     return sd

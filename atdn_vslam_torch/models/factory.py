@@ -4,8 +4,10 @@ Every builder takes an explicit ``device``, default ``"cuda"``, which
 raises on a machine without a GPU; tests pass ``device="cpu"``.
 Compute types mirror the JAX package's policy: the flow net computes in
 bf16 on the GPU when ``mixed_precision`` is on and in float32
-otherwise (always float32 on the CPU); ATDNVO computes in float32.
-Batch-norm parameters and statistics stay float32 in either case.
+otherwise (always float32 on the CPU); ATDNVO computes in float32;
+MappingVAE computes in bf16 on the GPU when ``mapping.compute_dtype`` is
+``"bfloat16"`` and in float32 otherwise, from float32 parameters.
+Batch-norm parameters and statistics stay float32 in every case.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from torch import nn
 
 from atdn_vslam_torch.config import Config
 from atdn_vslam_torch.models.flow.network import RAFTGMA
+from atdn_vslam_torch.models.mapping import MappingVAE
 from atdn_vslam_torch.models.odometry import ATDNVO
 from atdn_vslam_torch.utils.helpers import resolve_device
 
@@ -77,12 +80,28 @@ def build_odometry_model(config: Config, device: str | torch.device = "cuda") ->
     return model.to(dev).eval()
 
 
+def mapping_compute_dtype(config: Config, device: torch.device) -> torch.dtype:
+    if config.mapping.compute_dtype == "bfloat16" and device.type == "cuda":
+        return torch.bfloat16
+    return torch.float32
+
+
+def build_mapping_model(config: Config, device: str | torch.device = "cuda") -> MappingVAE:
+    """MappingVAE in the config's widths and compute type, parameters in
+    float32 (``mapping.wpack`` steers a TPU lowering and is ignored)."""
+    dev = resolve_device(device)
+    c = config.mapping
+    model = MappingVAE(c.variational, c.channels, c.latent_channels, mapping_compute_dtype(config, dev))
+    return model.to(dev).eval()
+
+
 @torch.no_grad()
 def init_params(module: nn.Module, seed: int) -> nn.Module:
     """Seeded random parameters, drawn on the CPU from one
     ``torch.Generator`` so that a seed gives the same weights on any
-    device: uniform(+-1/sqrt(fan_in)) for convolutions, linear layers
-    and LSTM cells (PyTorch's own default bounds), identity batch norm.
+    device: uniform(+-1/sqrt(fan_in)) for convolutions (transposed ones
+    too), linear layers and LSTM cells (PyTorch's own default bounds),
+    identity batch norm.
     GMA's ``gamma`` keeps its reference initial value 0."""
     g = torch.Generator().manual_seed(seed)
 
@@ -90,7 +109,7 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
         p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
 
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             fill(m.weight, bound)
             if m.bias is not None:

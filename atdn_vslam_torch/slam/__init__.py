@@ -1,4 +1,4 @@
-"""SLAM runtime (odometry mode) and keyframe store."""
+"""SLAM runtime (odometry, mapping, relocalisation) and keyframe store."""
 
 from atdn_vslam_torch.slam.keyframes import KeyframeStore
 from atdn_vslam_torch.slam.runtime import SlamRuntime

@@ -44,15 +44,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
      against the default path's result;
   10. apply_probs_backward: K4's backward through its autograd.Function
       at the KITTI shape against the plain products;
-  11. the ``kernels`` line, the card, and last the ``ok`` line.
+  11. mapping: the map and relocalisation at 376x1232 (full MappingVAE
+      widths, bf16, the slices' flow and odometry weights): 32 frames
+      streamed as keyframes, ``end_odometry`` trains the map (2 epochs,
+      batch 16) and embeds the keyframes, 4 keyframes' own frames are
+      queried cold and again warm (self-retrieval; K1 once and K2 12
+      times per query), a warm start from the saved map answers a query
+      as the runtime that built it; at 96x192, one float32 train step on
+      the GPU (TF32 off) against the CPU and the bf16 code against the
+      float32 code;
+  12. the ``kernels`` line, the card, and last the ``ok`` line.
 
 The kernel lines of phase 3 also cover K2n (the three small KITTI
 levels), K4 (K1's KITTI output), K2s (the row-padded KITTI pyramid) and
 K3t (the KITTI pyramid).
 
 ``--profile N`` adds N more streaming steps under ``torch.profiler`` to
-each slice's line and to both builds of the nlanes phase: device time
-by kernel and the device's idle share.
+each slice's line and to both builds of the nlanes phase, and N map
+train steps and N warm queries to the mapping line: device time by
+kernel and the device's idle share.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -60,6 +70,8 @@ Exits non-zero without a result when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -109,6 +121,15 @@ FLOW_NLANES_TOL = 0.05
 # this check's own input the port's plain versions on the CPU put bf16
 # 0.91% and 0.45% away from float32. 2% allows about twice either gap
 FLOW_BF16_REL = 0.02
+# one float32 map train step on the GPU (TF32 off) against the CPU: the
+# tolerances the CPU tests hold the port's step to against the JAX
+# package (tests/test_torch_mapping_train.py)
+MAP_LOSS_RTOL = 1e-6
+MAP_GRAD_REL = 1e-3  # of each tensor's largest gradient
+MAP_STATS_TOL = {"rtol": 1e-5, "atol": 1e-5}
+# the bf16 code against the float32 code, as a share of the largest
+# float32 code: the JAX package's own bf16 bound (tests/test_training.py:210)
+MAP_BF16_REL = 0.05
 
 
 def emit(phase: str, **fields) -> None:
@@ -833,15 +854,16 @@ def seeded_weights(cfg, seed: int, gamma: float = 0.5):
     return flow.state_dict(), odo.state_dict()
 
 
-def synthetic_frames(n: int, hw: tuple[int, int], seed: int) -> list[np.ndarray]:
-    """A smooth random texture seen by a camera panning 3 px right and
-    1 px down per frame."""
+def synthetic_frames(n: int, hw: tuple[int, int], seed: int, dx: int = 3, dy: int = 1) -> list[np.ndarray]:
+    """A smooth random texture seen by a camera panning ``dx`` px right and
+    ``dy`` px down per frame."""
     h, w = hw
     rng = np.random.default_rng(seed)
-    coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, h // 4 + n, w // 4 + n)).astype(np.float32))
+    pad_h, pad_w = max(n, -(-n * dy // 4)), max(n, -(-n * dx // 4))  # n, n at the default pan
+    coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, h // 4 + pad_h, w // 4 + pad_w)).astype(np.float32))
     big = F.interpolate(coarse, scale_factor=4, mode="bilinear", align_corners=False)[0]
     big = big.permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
-    return [np.ascontiguousarray(big[i : i + h, 3 * i : 3 * i + w]) for i in range(n)]
+    return [np.ascontiguousarray(big[dy * i : dy * i + h, dx * i : dx * i + w]) for i in range(n)]
 
 
 def run_stream(rt, frames) -> tuple[np.ndarray, list[float]]:
@@ -1243,12 +1265,192 @@ def entry_points(device, hw=FULL_HW, iters=12, pairs=3) -> dict:
             "tolerance": {"corr_dot_tiled": K3_TOL, "corr_lookup_slab": K2S_TOL, "apply_probs": K4_TOL}}
 
 
+def map_agreement(device, hw=(96, 192), seed=13) -> dict:
+    """One float32 map train step on ``device`` (TF32 off) and on the
+    CPU from the same seeded weights, batch and jitter factors: loss,
+    gradients and batch-norm statistics; then the bf16 code against the
+    float32 code on ``device``, same weights and images."""
+    from atdn_vslam_torch.config import MappingTrainConfig
+    from atdn_vslam_torch.models.factory import init_params
+    from atdn_vslam_torch.models.mapping import MappingVAE
+    from atdn_vslam_torch.training import mapping as train
+    from atdn_vslam_torch.utils.helpers import full_float32
+
+    images = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (2, *hw, 3), dtype=np.uint8))
+    factors = train.jitter_factors(2, torch.Generator().manual_seed(seed))
+    cfg = MappingTrainConfig(epochs=1, batch_size=2, seed=seed)
+    init = init_params(MappingVAE(), seed).state_dict()
+    models, losses = {}, {}
+    with full_float32():
+        for dev in (device, torch.device("cpu")):
+            model = MappingVAE().to(dev)
+            model.load_state_dict(init)
+            opt, sched = train.make_optimizer(model, cfg, 1)
+            losses[dev.type] = float(train.train_step(model, opt, sched, images.to(dev), factors))
+            models[dev.type] = model
+    got, ref = models[device.type], models["cpu"]
+    loss_err = abs(losses[device.type] - losses["cpu"]) / abs(losses["cpu"])
+    if not np.isfinite(losses[device.type]) or loss_err > MAP_LOSS_RTOL:
+        raise AssertionError(f"mapping: train-step loss {losses[device.type]} against {losses['cpu']}")
+    grad_rel = 0.0
+    for (name, p), q in zip(got.named_parameters(), ref.parameters()):
+        scale = float(q.grad.abs().max())
+        err = float((p.grad.cpu() - q.grad).abs().max())
+        grad_rel = max(grad_rel, err / scale)
+        if not err <= MAP_GRAD_REL * scale:
+            raise AssertionError(f"mapping: gradient of {name} differs by {err} > {MAP_GRAD_REL} x {scale}")
+    stats_err = 0.0
+    for (name, a), b in zip(got.state_dict().items(), ref.state_dict().values()):
+        if "running" in name:
+            stats_err = max(stats_err, check_close(f"mapping: {name}", a.cpu(), b, **MAP_STATS_TOL))
+
+    bf16 = MappingVAE(dtype=torch.bfloat16).to(device).eval()
+    bf16.load_state_dict(init)
+    f32 = MappingVAE().to(device).eval()
+    f32.load_state_dict(init)
+    with torch.inference_mode():
+        codes = [m.get_code(images.to(device).float()) for m in (bf16, f32)]
+    diff, scale = float((codes[0] - codes[1]).abs().max()), float(codes[1].abs().max())
+    if codes[0].dtype != torch.float32 or not bool(codes[0].isfinite().all()) or diff > MAP_BF16_REL * scale:
+        raise AssertionError(f"mapping: bf16 code differs from float32 by {diff} > {MAP_BF16_REL} x {scale}")
+    return {
+        "hw": list(hw), "loss": losses[device.type], "loss_cpu": losses["cpu"], "loss_rel_err": loss_err,
+        "max_grad_err_rel": grad_rel, "max_stats_err": stats_err,
+        "tolerance": {"loss_rtol": MAP_LOSS_RTOL, "grad_rel": MAP_GRAD_REL, "stats": MAP_STATS_TOL},
+        "bf16_code": {"max_abs_diff": diff, "max_abs_code": scale, "rel_tol": MAP_BF16_REL},
+    }
+
+
+def mapping(device, keyframes_path: str, hw=FULL_HW, iters=12, keyframes=32, epochs=2, batch=16,
+            queries=(0, 11, 22, 31), profile: int = 0) -> dict:
+    """The runtime past odometry, on the slices' flow and odometry weights
+    (seed 0) with the default bf16 map: ``keyframes`` frames streamed with
+    zero keyframe thresholds, ``end_odometry`` (map training, each train
+    step timed on the host clock around its synchronised end, then the
+    embedding of every keyframe), each of ``queries``' own frames sent
+    twice (the keyframe's feature map cold, then cached), and a warm
+    start from the saved map answering the first query again. The first
+    train step and the first query include cuDNN's autotuning of their
+    shapes and are reported apart. ``profile`` more train steps (on a
+    copy of the map) and warm queries run under ``torch.profiler``."""
+    from atdn_vslam_torch.config import MappingTrainConfig
+    from atdn_vslam_torch.slam import SlamRuntime
+    from atdn_vslam_torch.slam import runtime as slam_runtime
+    from atdn_vslam_torch.training import mapping as train
+
+    cfg = flow_config(keyframes_path, hw, iters, bf16=True)
+    cfg = dataclasses.replace(
+        cfg, slam=dataclasses.replace(cfg.slam, rotation_threshold_deg=0.0, translation_threshold=0.0),
+        mapping_train=MappingTrainConfig(epochs=epochs, batch_size=batch),
+    )
+    weights = seeded_weights(cfg, seed=0)
+    frames = synthetic_frames(keyframes, hw, seed=12, dx=24, dy=4)  # every frame differs
+    rt = new_runtime(cfg, weights, device)
+    run_stream(rt, frames)
+    if len(rt) != keyframes:
+        raise AssertionError(f"mapping: {len(rt)} keyframes from {keyframes} frames")
+
+    step_ms, losses = [], []
+    untimed = train.train_step
+
+    def timed_step(*args, **kwargs):
+        t0 = time.perf_counter()
+        loss = float(untimed(*args, **kwargs))  # the host copy waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        return torch.tensor(loss)
+
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    train.train_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        rt.end_odometry()
+        end_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        train.train_step = untimed
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+    map_launches = read_launches()
+    if rt.mode() != "relocalization" or map_launches != launches_of():
+        raise AssertionError(f"mapping: mode {rt.mode()}, kernels launched while mapping: {map_launches}")
+    steps = epochs * (keyframes // batch)
+    if len(step_ms) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"mapping: {len(step_ms)} train steps, not {steps}, losses {losses}")
+    emb = rt.keyframes.embeddings
+    if emb.shape != (keyframes, -(-hw[0] // 64) * -(-hw[1] // 64) * 128) or not np.isfinite(emb).all():
+        raise AssertionError(f"mapping: embeddings {emb.shape}")
+    _sync(device)
+    t0 = time.perf_counter()
+    again = slam_runtime.embed_keyframes(rt.mapping_model, rt.keyframes, device)
+    embed_ms = (time.perf_counter() - t0) * 1e3 / keyframes
+    embed_diff = float(np.abs(again - emb).max())
+
+    answers, times = {}, {"cold": [], "warm": []}
+    reset_launches()
+    for kind in ("cold", "warm"):
+        for q in queries:
+            t0 = time.perf_counter()
+            initial, refined, dist = rt(frames[q])
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+            nearest = int(np.argmin(dist))
+            if nearest != q or not np.isfinite(refined).all():
+                raise AssertionError(f"mapping: query {q} ({kind}) found keyframe {nearest}")
+            if not np.array_equal(initial, rt.keyframes.poses[q]):
+                raise AssertionError(f"mapping: query {q} initial pose is not keyframe {q}'s")
+            answers.setdefault(q, (initial, refined, dist))
+    query_launches = read_launches()
+    n_q = 2 * len(queries)
+    want = launches_of(attention_probs=n_q, corr_lookup=iters * n_q)
+    if device.type == "cuda" and query_launches != want:
+        raise AssertionError(f"mapping: {n_q} queries launched {query_launches}, not {want}")
+    self_dist = [float(answers[q][2][q]) for q in queries]
+    other_dist = [float(np.min(np.delete(answers[q][2], q))) for q in queries]
+
+    warm = SlamRuntime(cfg, *weights, start_mode="relocalization", device=device)
+    warm_diff = max(
+        float(np.abs(np.asarray(a) - np.asarray(b)).max())
+        for a, b in zip(warm(frames[queries[0]]), answers[queries[0]])
+    )
+    if warm.mode() != "relocalization" or warm_diff > 1e-5:
+        raise AssertionError(f"mapping: the warm start's answer differs by {warm_diff}")
+    profiles = {}
+    if profile:
+        model = copy.deepcopy(rt.mapping_model)
+        opt, sched = train.make_optimizer(model, cfg.mapping_train, profile)
+        imgs = torch.from_numpy(np.stack([rt.keyframes.read_rgb(i) for i in range(batch)])).to(device)
+        gen = torch.Generator().manual_seed(0)
+        profiles["profile_train_step"] = profile_frames(
+            lambda _: float(train.train_step(model, opt, sched, imgs, train.jitter_factors(batch, gen))),
+            range(profile),
+        )
+        profiles["profile_query_warm"] = profile_frames(
+            lambda q: rt(frames[q]), [queries[i % len(queries)] for i in range(profile)]
+        )
+    return {
+        "hw": list(hw), "iters": iters, "keyframes": keyframes, "epochs": epochs, "batch": batch,
+        "map_dtype": "bfloat16", "code_floats": int(emb.shape[1]),
+        "reduced": ["32 keyframes instead of a sequence's hundreds", "2 epochs instead of 50"],
+        "train_step_ms": float(np.mean(step_ms[1:])), "first_step_ms": step_ms[0], "step_ms": step_ms,
+        "losses": losses,
+        "end_odometry_ms": end_ms, "embed_ms_per_keyframe": embed_ms, "embed_repeat_max_diff": embed_diff,
+        "peak_mem_gib": peak_gib, "launches_while_mapping": map_launches,
+        "query_ms_cold": float(np.mean(times["cold"][1:])), "query_ms_warm": float(np.mean(times["warm"])),
+        "first_query_ms": times["cold"][0], "query_ms": times, "launches": query_launches, "queries": n_q,
+        "self_distance": self_dist, "nearest_other_distance": other_dist,
+        "warm_start_max_diff": warm_diff,
+        "agreement": map_agreement(device), **profiles,
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None, help="also write every phase's result to this JSON file")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="after each slice and each build of the nlanes phase, profile N more "
-                        "streaming steps with torch.profiler")
+                        "streaming steps with torch.profiler; in the mapping phase N train "
+                        "steps and N warm queries")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1315,6 +1517,8 @@ def main(argv=None) -> int:
     emit("entry_points", card=card, **results["entry_points"])
     results["apply_probs_backward"] = k4_backward(device)
     emit("apply_probs_backward", card=card, **results["apply_probs_backward"])
+    results["mapping"] = mapping(device, os.path.join(work, "map_keyframes"), profile=args.profile)
+    emit("mapping", card=card, **results["mapping"])
     kernels[0]["pass_ms"] = k1_pass_ms(device)
 
     # each kernel's launches from the run of the path that drives it
