@@ -9,17 +9,20 @@ This package never imports JAX or the JAX package.
 Ported so far: the streaming odometry step (``slam.SlamRuntime`` in
 odometry mode) with RAFTGMA in test mode and ATDNVO; the keyframe map
 (MappingVAE, trained by ``end_odometry``) and relocalisation against it;
-the reference checkpoint loader.
+loop closure and the pose-graph solve; ATDNVO training, odometry
+evaluation and the SLAM demo; the reference checkpoint loader.
 
-  geometry/   SE(3) pose math
+  data/       KITTI poses, flow caches and windows, flow file formats
+  eval/       trajectory metrics, KITTI trajectory files, plots
+  geometry/   SE(3) pose math, the pose-graph solve
   models/     ATDNVO, the GMA flow network, MappingVAE, the factory
               that makes them from a config
   ops/        attention probabilities (kernel K1), correlation pyramid
               and window lookup (kernel K2), bilinear sampling, convex
               upsampling, padding, the kernel build
   slam/       runtime state machine and keyframe store
-  training/   MappingVAE training and its losses
-  cli/        train_mapping
+  training/   ATDNVO and MappingVAE training and their losses
+  cli/        train_odometry, evaluate_odometry, slam_demo, train_mapping
   checkpoint.py  reference .pth -> state_dict
   convert.py  JAX variables -> state_dict
 """

@@ -16,6 +16,7 @@ What is inverted:
   * flax's per-gate LSTM denses -> packed (i, f, g, o) ``weight_ih``/
     ``weight_hh``, the whole bias on ``bias_hh`` and zeros on ``bias_ih``;
   * the ATDNVO Linear's input order, HWC (JAX) -> CHW (reference);
+  * flax ``LayerNorm`` scale/bias -> ``norm.weight``/``norm.bias``;
   * the correlation window of ``convc1``'s input channels, dy-major
     (JAX) -> dx-major (reference);
   * flax's ``nn.ConvTranspose`` kernel (kH, kW, I, O), which correlates
@@ -29,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from atdn_vslam_torch.models.odometry import encoder_feature_shape
+from atdn_vslam_torch.models.odometry import NON_COMPRESSOR_CHANNELS, encoder_feature_shape
 
 
 def _np(x) -> np.ndarray:
@@ -172,36 +173,56 @@ def _linear(sd, key: str, params: dict) -> None:
         sd[f"{key}.bias"] = _t(params["bias"])
 
 
+def _linear_block(sd, key: str, params: dict, kernel=None) -> None:
+    """A LinearBlock's dense (``kernel`` overrides its kernel) and, when
+    it has one, its layer norm."""
+    dense = params["Dense_0"]
+    _linear(sd, f"{key}.linear", dense if kernel is None else {"kernel": kernel, "bias": dense["bias"]})
+    if "LayerNorm_0" in params:
+        sd[f"{key}.norm.weight"] = _t(params["LayerNorm_0"]["scale"])
+        sd[f"{key}.norm.bias"] = _t(params["LayerNorm_0"]["bias"])
+
+
 def atdnvo_state_dict_from_jax(
     tree: dict, image_hw: tuple[int, int] = (376, 1232)
 ) -> dict[str, torch.Tensor]:
-    """ATDNVO flax variables -> port/reference ``state_dict``.
+    """ATDNVO flax variables -> port/reference ``state_dict``, for the
+    compressor and the non-compressor encoder, with or without layer
+    norms (the variant is read from the tree; dropout has no parameter).
 
     :param image_hw: the flow size the model was built for; it fixes
         the (C, H, W) of the flattened encoder features.
     """
     params, stats = tree["params"], tree["batch_stats"]
     enc, enc_s = params["encoder"], stats["encoder"]
+    compressor = "ConvBlock_0" in enc
     sd: dict[str, torch.Tensor] = {}
-    _put_conv(sd, "encoder_CNN.0", enc["Conv_0"])
-    _conv_block(sd, "encoder_CNN.1", enc["ConvBlock_0"], enc_s["ConvBlock_0"])
-    for i in range(4):
-        name = f"ResidualConvBlock_{i}"
-        _residual_block(sd, f"encoder_CNN.{i + 2}", enc[name], enc_s[name])
-    _conv_block(sd, "encoder_CNN.6", enc["ConvBlock_1"], enc_s["ConvBlock_1"])
+    if compressor:
+        _put_conv(sd, "encoder_CNN.0", enc["Conv_0"])
+        _conv_block(sd, "encoder_CNN.1", enc["ConvBlock_0"], enc_s["ConvBlock_0"])
+        for i in range(4):
+            name = f"ResidualConvBlock_{i}"
+            _residual_block(sd, f"encoder_CNN.{i + 2}", enc[name], enc_s[name])
+        _conv_block(sd, "encoder_CNN.6", enc["ConvBlock_1"], enc_s["ConvBlock_1"])
+        linear_key = "encoder_CNN.8"
+    else:
+        for i in range(len(NON_COMPRESSOR_CHANNELS)):
+            name = f"ResidualConvBlock_{i}"
+            _residual_block(sd, f"encoder_CNN.{i}", enc[name], enc_s[name])
+        linear_key = f"encoder_CNN.{len(NON_COMPRESSOR_CHANNELS) + 1}"
     # JAX flattens (H, W, C), the reference (C, H, W)
-    c, h, w = encoder_feature_shape(image_hw)
-    dense = enc["LinearBlock_0"]["Dense_0"]
-    kernel = _np(dense["kernel"]).reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1)
-    _linear(sd, "encoder_CNN.8.linear", {"kernel": kernel, "bias": dense["bias"]})
+    c, h, w = encoder_feature_shape(image_hw, compressor)
+    block = enc["LinearBlock_0"]
+    kernel = _np(block["Dense_0"]["kernel"]).reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1)
+    _linear_block(sd, linear_key, block, kernel)
     _lstm(sd, "lstm1", params["lstm1"])
-    _linear(sd, "lstm_linear.linear", params["lstm_linear"]["Dense_0"])
+    _linear_block(sd, "lstm_linear", params["lstm_linear"])
     _lstm(sd, "lstm2", params["lstm2"])
     for jax_head, ref_head in (("rotation_head", "rotation_regressor"),
                                ("translation_head", "translation_regressor")):
         head = params[jax_head]
-        _linear(sd, f"{ref_head}.0.linear", head["LinearBlock_0"]["Dense_0"])
-        _linear(sd, f"{ref_head}.1.linear", head["LinearBlock_1"]["Dense_0"])
+        _linear_block(sd, f"{ref_head}.0", head["LinearBlock_0"])
+        _linear_block(sd, f"{ref_head}.1", head["LinearBlock_1"])
         _linear(sd, f"{ref_head}.2", head["Dense_0"])
     return sd
 

@@ -1,1 +1,1 @@
-"""SE(3) pose math."""
+"""SE(3) pose math and the pose-graph solve."""

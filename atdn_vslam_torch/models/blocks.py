@@ -146,13 +146,36 @@ class ConnectedDUCBlock(nn.Module):
         return self.duc(self.conv(torch.cat([direct, skip], dim=1)))
 
 
-class LinearBlock(nn.Module):
-    """Linear -> Mish (the reference's optional layer norm and dropout
-    are off in every shipped configuration)."""
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` that draws its masks from ``generator`` once one is
+    set (a ``torch.Generator`` on the input's device; the odometry
+    trainer sets one seeded from its config), else from torch's default
+    generator. Identity in eval mode."""
 
-    def __init__(self, fin: int, fout: int):
-        super().__init__()
-        self.linear = nn.Linear(fin, fout)
+    generator: torch.Generator | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mish(self.linear(x))
+        if not self.training or self.p == 0.0 or self.generator is None:
+            return super().forward(x)
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device, dtype=x.dtype) >= self.p
+        return x * keep / (1.0 - self.p)
+
+
+class LinearBlock(nn.Module):
+    """Linear -> Mish -> [LayerNorm] -> [Dropout 0.2]
+    (ref: layers/linear.py:5-41). The layer norm is flax's
+    ``nn.LayerNorm()``: the last axis, epsilon 1e-6."""
+
+    def __init__(self, fin: int, fout: int, norm: bool = False, dropout: bool = False):
+        super().__init__()
+        self.linear = nn.Linear(fin, fout)
+        self.norm = nn.LayerNorm(fout, eps=1e-6) if norm else None
+        self.dropout = Dropout(0.2) if dropout else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = mish(self.linear(x))
+        if self.norm is not None:
+            x = self.norm(x)
+        if self.dropout is not None:
+            x = self.dropout(x)
+        return x

@@ -4,7 +4,8 @@ Every builder takes an explicit ``device``, default ``"cuda"``, which
 raises on a machine without a GPU; tests pass ``device="cpu"``.
 Compute types mirror the JAX package's policy: the flow net computes in
 bf16 on the GPU when ``mixed_precision`` is on and in float32
-otherwise (always float32 on the CPU); ATDNVO computes in float32;
+otherwise (always float32 on the CPU); ATDNVO computes in float32, in
+training too;
 MappingVAE computes in bf16 on the GPU when ``mapping.compute_dtype`` is
 ``"bfloat16"`` and in float32 otherwise, from float32 parameters.
 Batch-norm parameters and statistics stay float32 in every case.
@@ -69,14 +70,17 @@ def cast_flow_model(model: RAFTGMA, dtype: torch.dtype) -> RAFTGMA:
     return model
 
 
-def build_odometry_model(config: Config, device: str | torch.device = "cuda") -> ATDNVO:
+def build_odometry_model(
+    config: Config, device: str | torch.device = "cuda", image_hw: tuple[int, int] | None = None
+) -> ATDNVO:
+    """ATDNVO with every encoder variant and option of
+    ``config.odometry`` (``train_compute_dtype`` and ``wpack`` steer TPU
+    lowerings and are ignored), in eval mode, for flows of ``image_hw``
+    (default: the runtime's working size)."""
     dev = resolve_device(device)
     c = config.odometry
-    if not c.compressor or c.use_dropout or c.use_layernorm:
-        raise NotImplementedError(
-            "only the compressor ATDNVO without dropout or layer norm is ported"
-        )
-    model = ATDNVO(working_size(config), c.in_channels, c.lstm_size)
+    hw = working_size(config) if image_hw is None else tuple(image_hw)
+    model = ATDNVO(hw, c.in_channels, c.lstm_size, c.compressor, c.use_dropout, c.use_layernorm)
     return model.to(dev).eval()
 
 
@@ -101,7 +105,7 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
     ``torch.Generator`` so that a seed gives the same weights on any
     device: uniform(+-1/sqrt(fan_in)) for convolutions (transposed ones
     too), linear layers and LSTM cells (PyTorch's own default bounds),
-    identity batch norm.
+    identity batch and layer norm.
     GMA's ``gamma`` keeps its reference initial value 0."""
     g = torch.Generator().manual_seed(seed)
 
@@ -117,6 +121,6 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, nn.LSTMCell):
             for p in m.parameters():
                 fill(p, 1.0 / math.sqrt(m.hidden_size))
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
     return module

@@ -1,4 +1,5 @@
-"""SLAM runtime (odometry, mapping, relocalisation) and keyframe store."""
+"""SLAM runtime (odometry, mapping, relocalisation, loop closure) and
+keyframe store."""
 
 from atdn_vslam_torch.slam.keyframes import KeyframeStore
 from atdn_vslam_torch.slam.runtime import SlamRuntime

@@ -10,10 +10,10 @@ explicit LSTM carry, ``pose_to_matrix``; then float64 pose chaining and
 the rotation/translation keyframe test on the host. ``end_odometry``
 trains MappingVAE on the keyframes, saves it and embeds every keyframe;
 a query is then encoded, matched to the nearest keyframe code and
-refined by one flow + odometry step from that keyframe.
-
-The pose graph and loop closure are a later slice: their entry points
-raise ``NotImplementedError`` naming the ROADMAP item (M10).
+refined by one flow + odometry step from that keyframe. Loop closure
+finds revisits among the keyframe codes, measures each with the same
+step, gates them geometrically and refines the keyframe trajectory with
+the pose-graph solve (``geometry/pose_graph.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from atdn_vslam_torch.config import Config
-from atdn_vslam_torch.geometry.se3 import matrix_to_euler, pose_to_matrix
+from atdn_vslam_torch.geometry.pose_graph import odometry_edges, optimize_pose_graph
+from atdn_vslam_torch.geometry.se3 import matrix_to_euler, pose_to_matrix, se3_inverse
 from atdn_vslam_torch.models.factory import (
     build_flow_model,
     build_mapping_model,
@@ -39,7 +40,7 @@ from atdn_vslam_torch.ops.bilinear import forward_warp_flow
 from atdn_vslam_torch.ops.padding import InputPadder
 from atdn_vslam_torch.slam.keyframes import KeyframeStore
 from atdn_vslam_torch.training.mapping import train_mapping
-from atdn_vslam_torch.utils.helpers import log, resolve_device
+from atdn_vslam_torch.utils.helpers import full_float32, log, resolve_device
 
 #: the trained map's weights inside the keyframe store, written by the
 #: runtime and by ``cli/train_mapping.py``, read by the warm start
@@ -328,11 +329,181 @@ class SlamRuntime:
         refined = initial @ mat.double().cpu().numpy()
         return initial, refined, distances
 
-    def refine_trajectory(self, *args, **kwargs):
-        raise NotImplementedError("the pose-graph backend is not ported yet (ROADMAP M10)")
+    # -- the pose graph and loop closure ----------------------------------
+    #
+    # Place recognition is the map's embeddings (a nearest-code search);
+    # the relative pose of a candidate pair is measured by the same flow +
+    # odometry step as a relocalisation query; the keyframe chain and the
+    # accepted closures then go through the pose-graph solve.
 
-    def close_loops(self, *args, **kwargs):
-        raise NotImplementedError("loop closure is not ported yet (ROADMAP M10)")
+    def closure_graph(self, closures: list[tuple[int, int, np.ndarray]], closure_weight: float = 1.0):
+        """The keyframe pose graph on the runtime's device, float32:
+        (poses (K, 4, 4), edges_i, edges_j, measurements (E, 4, 4),
+        weights (E,)). Consecutive keyframes' relative poses are the
+        odometry edges (weight 1), each closure ``(i, j, T_ij)`` (T_ij the
+        4x4 measured pose of keyframe j in keyframe i's frame) an edge of
+        weight ``closure_weight``."""
+        n = len(self.keyframes)
+        if n < 2:
+            raise RuntimeError("trajectory refinement needs >= 2 keyframes")
+        if not closures:
+            raise ValueError(
+                "refine_trajectory needs at least one closure edge: "
+                "odometry edges alone are already consistent"
+            )
+        for i, j, _ in closures:
+            # checked on the host: an index past the end would constrain
+            # the wrong keyframes (or fail on the device) otherwise
+            if not (0 <= i < n and 0 <= j < n):
+                raise ValueError(f"closure ({i}, {j}) out of range for {n} keyframes")
+        dev = self.device
+        with full_float32():
+            poses = torch.as_tensor(self.keyframes.poses[:n], dtype=torch.float32, device=dev)
+            ei, ej = odometry_edges(n, dev)
+            meas = se3_inverse(poses[ei]) @ poses[ej]
+        cm = torch.as_tensor(np.stack([c[2] for c in closures]), dtype=torch.float32, device=dev)
+        weights = torch.cat([
+            torch.ones(n - 1, device=dev), torch.full((len(closures),), float(closure_weight), device=dev)
+        ])
+        return (
+            poses,
+            torch.cat([ei, torch.tensor([c[0] for c in closures], device=dev)]),
+            torch.cat([ej, torch.tensor([c[1] for c in closures], device=dev)]),
+            torch.cat([meas, cm]),
+            weights,
+        )
+
+    def refine_trajectory(
+        self,
+        closures: list[tuple[int, int, np.ndarray]],
+        iterations: int = 10,
+        closure_weight: float = 1.0,
+    ) -> tuple[np.ndarray, float]:
+        """Pose-graph refinement of the keyframe trajectory: a damped
+        Gauss-Newton solve of :meth:`closure_graph` in float32 on the
+        runtime's device spreads the closure error along the chain. The
+        keyframe poses are updated in place (float64) and saved.
+
+        :return: (optimised (K, 4, 4) poses, final mean squared residual).
+        """
+        opt, mse = optimize_pose_graph(*self.closure_graph(closures, closure_weight), iterations=iterations)
+        opt = opt.double().cpu().numpy()
+        self.keyframes.poses[: len(opt)] = opt
+        self.keyframes.save()
+        return opt, float(mse)
+
+    def detect_closure_pairs(
+        self, min_gap: int = 10, max_dist: float | None = None, max_candidates: int = 5
+    ) -> list[tuple[int, int, float]]:
+        """Embedding-space loop-closure candidates ``(i, j, dist)`` with
+        ``j <= i - min_gap`` (revisits of an earlier place).
+
+        :param min_gap: least keyframe-index separation: nearby frames
+            always look alike and are chained by odometry edges already.
+        :param max_dist: the embedding-distance acceptance threshold;
+            ``None`` takes the median distance of consecutive keyframes.
+        :param max_candidates: cap, best first; a pair within
+            ``min_gap // 2`` of an already selected one on both ends is
+            suppressed.
+        """
+        emb = self.keyframes.embeddings
+        if emb is None:
+            raise RuntimeError("no embeddings: run end_odometry (mapping) first")
+        n = len(self.keyframes)
+        emb = emb[:n].reshape(n, -1)
+        if n < min_gap + 2:
+            return []
+        if max_dist is None:
+            max_dist = float(np.median(np.linalg.norm(emb[1:] - emb[:-1], axis=1)))
+
+        candidates: list[tuple[int, int, float]] = []
+        for i in range(min_gap, n):
+            d = np.linalg.norm(emb[: i - min_gap + 1] - emb[i], axis=1)
+            j = int(np.argmin(d))
+            if d[j] <= max_dist:
+                candidates.append((i, j, float(d[j])))
+        candidates.sort(key=lambda c: c[2])
+
+        selected: list[tuple[int, int, float]] = []
+        for i, j, dist in candidates:
+            if any(abs(i - si) <= min_gap // 2 and abs(j - sj) <= min_gap // 2 for si, sj, _ in selected):
+                continue
+            selected.append((i, j, dist))
+            if len(selected) >= max_candidates:
+                break
+        return selected
+
+    def measure_closure(self, i: int, j: int) -> np.ndarray:
+        """Keyframe j's pose in keyframe i's frame, measured by one flow +
+        odometry step from i to j with a fresh LSTM carry and keyframe
+        i's cached feature map (the relocalisation regime); float64."""
+        im_i = self._prepare(self.keyframes.read_rgb(i))
+        im_j = self._prepare(self.keyframes.read_rgb(j))
+        carry = self.odometry_model.init_carry(1)
+        mat, _flow, _low, _carry, _fmap = self._odometry_step(
+            im_i, im_j, carry, self._keyframe_fmap(i, im_i)
+        )
+        return mat.double().cpu().numpy()
+
+    def detect_closures(
+        self,
+        min_gap: int = 10,
+        max_dist: float | None = None,
+        max_candidates: int = 5,
+        max_translation: float | None = None,
+        max_rotation_deg: float | None = None,
+    ) -> list[tuple[int, int, np.ndarray]]:
+        """Closure edges ``(i, j, T_ij)`` for :meth:`refine_trajectory`,
+        T_ij = P_i^-1 P_j as its odometry edges.
+
+        A geometric gate follows the embedding search: a true revisit
+        measures a small relative motion, so a candidate whose measured
+        translation or rotation exceeds the bound is rejected before a
+        false edge can pull the whole trajectory.
+
+        :param max_translation: bound on the measured translation's norm;
+            ``None`` takes the keyframe translation threshold, and 0
+            turns the test off (as thresholds of 0 register every frame).
+        :param max_rotation_deg: bound on the measured rotation's euler
+            norm; ``None`` takes the keyframe rotation threshold, 0 off.
+        """
+        max_tr = self._tr_threshold if max_translation is None else max_translation
+        max_rot = self._rot_threshold if max_rotation_deg is None else np.deg2rad(max_rotation_deg)
+        edges = []
+        for i, j, _ in self.detect_closure_pairs(min_gap, max_dist, max_candidates):
+            t = self.measure_closure(i, j)
+            if max_tr > 0 and np.linalg.norm(t[:3, 3]) > max_tr:
+                log(f"closure ({i}, {j}) rejected: inconsistent translation")
+                continue
+            if max_rot > 0:
+                angle = np.linalg.norm(matrix_to_euler(torch.from_numpy(t[:3, :3])).numpy())
+                if angle > max_rot:
+                    log(f"closure ({i}, {j}) rejected: inconsistent rotation")
+                    continue
+            edges.append((i, j, t))
+        return edges
+
+    def close_loops(
+        self,
+        min_gap: int = 10,
+        max_dist: float | None = None,
+        max_candidates: int = 5,
+        iterations: int = 10,
+        closure_weight: float = 1.0,
+        max_translation: float | None = None,
+        max_rotation_deg: float | None = None,
+    ) -> tuple[np.ndarray, float] | None:
+        """Detect loop closures and refine the trajectory with them.
+
+        :return: (optimised poses, mean squared residual), or None when no
+            candidate passes the distance threshold and the geometric
+            gate (the poses are then untouched)."""
+        closures = self.detect_closures(
+            min_gap, max_dist, max_candidates, max_translation, max_rotation_deg
+        )
+        if not closures:
+            return None
+        return self.refine_trajectory(closures, iterations=iterations, closure_weight=closure_weight)
 
 
 def _to_uint8(im: torch.Tensor) -> np.ndarray:

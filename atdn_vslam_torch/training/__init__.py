@@ -1,1 +1,2 @@
-"""Training of the map network (MappingVAE) and its losses."""
+"""Training of the odometry network (ATDNVO) and of the map network
+(MappingVAE), and their losses."""

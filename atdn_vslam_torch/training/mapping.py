@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from atdn_vslam_torch.config import MappingTrainConfig
+from atdn_vslam_torch.config import MappingTrainConfig, TrainConfig
 from atdn_vslam_torch.models.factory import init_params
 from atdn_vslam_torch.models.mapping import MappingVAE, normalize_rgb
 from atdn_vslam_torch.training.losses import mapping_reconstruction_loss
@@ -88,9 +88,10 @@ def mapping_target(images: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     return normalize_rgb(gaussian_blur_5x5(x))
 
 
-def cosine_lr(cfg: MappingTrainConfig, steps_total: int) -> Callable[[int], float]:
+def cosine_lr(cfg: MappingTrainConfig | TrainConfig, steps_total: int) -> Callable[[int], float]:
     """Step -> learning rate, ``optax.cosine_decay_schedule(lr,
-    steps_total, alpha=eta_min / lr)``: step t uses lr(t)."""
+    steps_total, alpha=eta_min / lr)``: step t uses lr(t). Takes the
+    map's or the odometry's training config."""
     decay = max(steps_total, 1)
     alpha = cfg.eta_min / cfg.lr
 

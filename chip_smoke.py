@@ -53,16 +53,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
       as the runtime that built it; at 96x192, one float32 train step on
       the GPU (TF32 off) against the CPU and the bf16 code against the
       float32 code;
-  12. the ``kernels`` line, the card, and last the ``ok`` line.
+  12. loop_closure: at 376x1232 on the slices' weights (bf16 flow, zero
+      keyframe thresholds), 12 frames out and the same 12 positions back,
+      streamed; ``end_odometry`` (2 map epochs); the closure pairs from
+      the embeddings, each measured with keyframe i's feature map cold,
+      then cached (K1 once and K2 12 times per measurement);
+      ``close_loops``; the solve of its graph on the card against the
+      CPU (``LOOP_POSE_TOL``), its ms and the residual before and after;
+  13. pose_graph: seeded drifted chains with closures, dense at 200 and
+      1000 poses, CG at 200, 1000 and 5000, 10 Gauss-Newton iterations
+      and 100 CG steps: ms after one warm-up, the residual before and
+      after, and at 200 poses both solvers' poses against the CPU's;
+  14. odometry_train: ATDNVO at the reference training configuration
+      (``configs/kitti.yaml``: batch 24, 6 flows per window, 376x1232,
+      float32), 5 steps on seeded synthetic flows and poses, each step's
+      ms and the peak memory; at 72x96 one float32 step on the card
+      against the CPU (loss, gradients, batch statistics);
+  15. the ``kernels`` line, the card, and last the ``ok`` line.
+
+The lines of phases 12-14 carry their own ``seconds``.
 
 The kernel lines of phase 3 also cover K2n (the three small KITTI
 levels), K4 (K1's KITTI output), K2s (the row-padded KITTI pyramid) and
 K3t (the KITTI pyramid).
 
 ``--profile N`` adds N more streaming steps under ``torch.profiler`` to
-each slice's line and to both builds of the nlanes phase, and N map
-train steps and N warm queries to the mapping line: device time by
-kernel and the device's idle share.
+each slice's line and to both builds of the nlanes phase, N map train
+steps and N warm queries to the mapping line, N solves to each
+pose-graph case and N train steps to the odometry_train line: device
+time by kernel and the device's idle share.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -1444,13 +1463,313 @@ def mapping(device, keyframes_path: str, hw=FULL_HW, iters=12, keyframes=32, epo
     }
 
 
+# the pose-graph solve on the card (float32, TF32 off) against the same
+# solve on the CPU: the tolerances the CPU tests hold the port's solve to
+# against the JAX package (tests/test_torch_pose_graph.py)
+GRAPH_POSE_ATOL = 1e-4
+GRAPH_MSE_RTOL, GRAPH_MSE_ATOL = 1e-3, 1e-9
+# the refined keyframe poses of loop closure, card against CPU: the pose
+# tolerance of the runtime parity tests (tests/test_torch_runtime.py)
+LOOP_POSE_TOL = {"rtol": 1e-4, "atol": 1e-4}
+# one float32 odometry train step on the card (TF32 off) against the CPU:
+# the map's step's bounds (MAP_*), which the CPU tests also hold the
+# port's odometry step to against the JAX package
+# (tests/test_torch_odometry_train.py)
+ODO_LOSS_RTOL = 1e-6
+ODO_GRAD_REL = 1e-3  # of each tensor's largest gradient
+ODO_STATS_TOL = {"rtol": 1e-5, "atol": 1e-5}
+
+
+def out_and_back(n: int, hw, seed: int) -> list[np.ndarray]:
+    """``n`` frames of a texture panning out (24 px right, 4 px down per
+    frame), then the same ``n`` positions back: frame n + k is pixel for
+    pixel frame n - 1 - k, a revisit for the embeddings to find."""
+    out = synthetic_frames(n, hw, seed=seed, dx=24, dy=4)
+    return out + out[::-1]
+
+
+def graph_mse(poses, edges_i, edges_j, meas) -> float:
+    from atdn_vslam_torch.geometry.pose_graph import edge_residuals
+
+    with torch.no_grad():
+        return float(torch.mean(edge_residuals(poses, edges_i, edges_j, meas) ** 2))
+
+
+def loop_closure(device, keyframes_path: str, hw=FULL_HW, iters=12, out=12, epochs=2, batch=16,
+                 min_gap=4) -> dict:
+    """Loop closure at KITTI on the slices' flow and odometry weights
+    (seed 0), bf16 flow, zero keyframe thresholds (so the geometric gate
+    is off and every frame is a keyframe): an out-and-back sequence
+    streamed, ``end_odometry`` (the map, ``epochs`` epochs of ``batch``),
+    the closure pairs from the embeddings, each pair measured twice
+    (keyframe i's feature map cold, then cached; K1 once and K2
+    ``iters`` times per measurement), ``close_loops`` timed whole, and the
+    solve of its graph alone on the card and on the CPU."""
+    from atdn_vslam_torch.config import MappingTrainConfig
+    from atdn_vslam_torch.geometry.pose_graph import optimize_pose_graph
+
+    t_start = time.perf_counter()
+    cfg = flow_config(keyframes_path, hw, iters, bf16=True)
+    cfg = dataclasses.replace(
+        cfg, slam=dataclasses.replace(cfg.slam, rotation_threshold_deg=0.0, translation_threshold=0.0),
+        mapping_train=MappingTrainConfig(epochs=epochs, batch_size=batch),
+    )
+    weights = seeded_weights(cfg, seed=0)
+    frames = out_and_back(out, hw, seed=15)
+    rt = new_runtime(cfg, weights, device)
+    run_stream(rt, frames)
+    rt.end_odometry()
+    n = len(rt)
+    if n != len(frames) or rt.mode() != "relocalization":
+        raise AssertionError(f"loop_closure: {n} keyframes, mode {rt.mode()}")
+    pairs = rt.detect_closure_pairs(min_gap=min_gap)
+    revisits = [(i, j) for i, j, _ in pairs if i + j == len(frames) - 1]
+    if not revisits:
+        raise AssertionError(f"loop_closure: no pixel-identical revisit among the pairs {pairs}")
+
+    measured, times = {}, {"cold": [], "warm": []}
+    per_measure = []
+    for kind in ("cold", "warm"):
+        for i, j, _ in pairs:
+            reset_launches()
+            _sync(device)
+            t0 = time.perf_counter()
+            t = rt.measure_closure(i, j)
+            times[kind].append((time.perf_counter() - t0) * 1e3)  # the host copy waits
+            per_measure.append(read_launches())
+            measured.setdefault((i, j), t)
+            if not np.isfinite(t).all():
+                raise AssertionError(f"loop_closure: measurement ({i}, {j}) is not finite")
+    want = launches_of(attention_probs=1, corr_lookup=iters)
+    if device.type == "cuda" and any(c != want for c in per_measure):
+        raise AssertionError(f"loop_closure: a measurement launched {per_measure}, not {want} each")
+
+    before = rt.keyframes.poses[:n].copy()
+    reset_launches()
+    _sync(device)
+    t0 = time.perf_counter()
+    result = rt.close_loops(min_gap=min_gap)
+    close_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    if result is None or not np.isfinite(result[0]).all():
+        raise AssertionError("loop_closure: close_loops found no closure or gave non-finite poses")
+    refined, mse = result
+    n_closures = len(pairs)  # the gate is off: every pair is an edge
+    want = launches_of(attention_probs=n_closures, corr_lookup=iters * n_closures)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"loop_closure: close_loops launched {launches}, not {want}")
+
+    # the solve alone, from the streamed poses, on the card and on the CPU
+    rt.keyframes.poses[:n] = before
+    closures = [(i, j, measured[(i, j)]) for i, j, _ in pairs]
+    graph = rt.closure_graph(closures)
+    mse_before = graph_mse(*graph[:4])
+    optimize_pose_graph(*graph)  # warm-up
+    _sync(device)
+    t0 = time.perf_counter()
+    got, got_mse = optimize_pose_graph(*graph)
+    got = got.cpu()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    ref, ref_mse = optimize_pose_graph(*(x.cpu() for x in graph))
+    pose_err = check_close("loop_closure: refined poses", got, ref, **LOOP_POSE_TOL)
+    if not abs(float(got_mse) - float(ref_mse)) <= max(GRAPH_MSE_RTOL * float(ref_mse), GRAPH_MSE_ATOL):
+        raise AssertionError(f"loop_closure: residual {float(got_mse)} on the card, {float(ref_mse)} on the CPU")
+    return {
+        "hw": list(hw), "iters": iters, "keyframes": n, "frames_out": out, "map_epochs": epochs,
+        "min_gap": min_gap, "pairs": [[i, j, d] for i, j, d in pairs], "revisits": revisits,
+        "closures": n_closures, "launches_per_measure": per_measure[0],
+        "measure_ms_cold": float(np.mean(times["cold"])), "measure_ms_warm": float(np.mean(times["warm"])),
+        "measure_ms": times, "close_loops_ms": close_ms, "close_loops_mse": mse, "launches": launches,
+        "solve_ms": solve_ms, "solve_iterations": 10, "mse_before": mse_before, "mse_after": float(got_mse),
+        "mse_after_cpu": float(ref_mse), "max_abs_pose_diff_cpu": pose_err, "tolerance": LOOP_POSE_TOL,
+        "max_pose_change": float(np.abs(refined - before).max()),
+        "reduced": [f"{n} keyframes instead of a sequence's hundreds", f"{epochs} map epochs instead of 50"],
+        "seconds": time.perf_counter() - t_start,
+    }
+
+
+def drifted_graph(n: int, seed: int, noise=0.005, loop=63, every=20):
+    """A chain of ``n`` poses stepping 1 m forward and turning 0.1 rad (a
+    circle of ~63 poses), stored with drifted odometry; closures
+    (i, i + ``loop``) every ``every`` poses carry the true relative pose,
+    weight 4. CPU float32 (poses, edges_i, edges_j, measurements,
+    weights)."""
+    from atdn_vslam_torch.geometry.pose_graph import se3_exp
+    from atdn_vslam_torch.geometry.se3 import prefix_products, se3_inverse
+
+    g = torch.Generator().manual_seed(seed)
+    eye = torch.eye(4, dtype=torch.float64)[None]
+    step = se3_exp(torch.tensor([0.0, 0.0, 1.0, 0.0, 0.1, 0.0], dtype=torch.float64))
+    gt = torch.cat([eye, prefix_products(step.expand(n - 1, 4, 4).contiguous())])
+    drift = se3_exp(torch.randn((n - 1, 6), generator=g, dtype=torch.float64) * noise)
+    rel = se3_inverse(gt[:-1]) @ gt[1:] @ drift
+    poses = torch.cat([eye, prefix_products(rel)])
+    ci = torch.arange(0, n - loop, every)
+    cj = ci + loop
+    ei = torch.arange(n - 1)
+    meas = torch.cat([se3_inverse(poses[:-1]) @ poses[1:], se3_inverse(gt[ci]) @ gt[cj]])
+    weights = torch.cat([torch.ones(n - 1), torch.full((len(ci),), 4.0)])
+    return poses.float(), torch.cat([ei, ci]), torch.cat([ei + 1, cj]), meas.float(), weights
+
+
+def pose_graph(device, cases=(("dense", 200), ("dense", 1000), ("cg", 200), ("cg", 1000), ("cg", 5000)),
+               iterations=10, cg_iterations=100, check_n=200, reps=3, profile: int = 0) -> dict:
+    """The pose-graph solve on seeded drifted chains with closures: ms
+    per solve (host clock around ``reps`` synchronised calls after one
+    warm-up) and the residual before and after; at ``check_n`` poses the
+    card's solution against the CPU's, both solvers. With ``profile``,
+    one more solve of each of the dense cases and of CG at 200 poses runs
+    under ``torch.profiler`` (the larger CG solves launch too many
+    kernels for the profiler's record to stay short)."""
+    from atdn_vslam_torch.geometry.pose_graph import optimize_pose_graph
+
+    t_start = time.perf_counter()
+    out = []
+    for solver, n in cases:
+        graph = drifted_graph(n, seed=n)
+        dev_graph = [x.to(device) for x in graph]
+
+        def solve():
+            return optimize_pose_graph(*dev_graph, iterations=iterations, solver=solver,
+                                       cg_iterations=cg_iterations)
+
+        float(solve()[1])  # warm-up
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        ms = []
+        for _ in range(reps):
+            _sync(device)
+            t0 = time.perf_counter()
+            got, mse = solve()
+            mse = float(mse)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(got).all()) or not np.isfinite(mse):
+            raise AssertionError(f"pose_graph: {solver} solve at N={n} is not finite")
+        case = {
+            "solver": solver, "poses": n, "edges": int(graph[1].shape[0]), "ms": float(np.mean(ms)),
+            "ms_runs": ms, "mse_before": graph_mse(*dev_graph[:4]), "mse_after": mse,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None,
+        }
+        if n == check_n:
+            ref, ref_mse = optimize_pose_graph(*graph, iterations=iterations, solver=solver,
+                                               cg_iterations=cg_iterations)
+            case["max_abs_pose_diff_cpu"] = check_close(
+                f"pose_graph: {solver} N={n}", got.cpu(), ref, rtol=0.0, atol=GRAPH_POSE_ATOL
+            )
+            case["mse_after_cpu"] = float(ref_mse)
+            if not abs(mse - float(ref_mse)) <= max(GRAPH_MSE_RTOL * float(ref_mse), GRAPH_MSE_ATOL):
+                raise AssertionError(f"pose_graph: {solver} N={n} residual {mse}, CPU {float(ref_mse)}")
+        if profile and (solver == "dense" or n <= 200):
+            case["profile"] = profile_frames(lambda _: float(solve()[1]), range(1), top=12)
+        out.append(case)
+    return {"iterations": iterations, "cg_iterations": cg_iterations, "cases": out,
+            "tolerance": {"pose_atol": GRAPH_POSE_ATOL, "mse_rtol": GRAPH_MSE_RTOL},
+            "seconds": time.perf_counter() - t_start}
+
+
+def odometry_agreement(device, hw=(72, 96), batch=2, steps=3, seed=16) -> dict:
+    """One float32 odometry train step on ``device`` (TF32 off) and on the
+    CPU from the same seeded weights and batch, alpha 0.5 (both loss
+    terms): loss, every gradient, the batch statistics after the step."""
+    from atdn_vslam_torch.config import LossConfig, TrainConfig
+    from atdn_vslam_torch.models.factory import init_params
+    from atdn_vslam_torch.models.odometry import ATDNVO
+    from atdn_vslam_torch.training import odometry as train
+
+    g = torch.Generator().manual_seed(seed)
+    flows = torch.randn((batch, steps, *hw, 2), generator=g) * 20.0
+    rot = torch.randn((batch, steps, 3), generator=g) * 0.02
+    tr = torch.randn((batch, steps, 3), generator=g) * 0.5
+    init = init_params(ATDNVO(hw), seed).state_dict()
+    models, metrics = {}, {}
+    for dev in (device, torch.device("cpu")):
+        model = ATDNVO(hw).to(dev)
+        model.load_state_dict(init)
+        opt, sched = train.make_optimizer(model, TrainConfig(), 1)
+        state = train.OdometryTrainState(model, opt, sched)
+        metrics[dev.type] = train.train_step(state, flows.to(dev), rot.to(dev), tr.to(dev), LossConfig(alpha=0.5))
+        models[dev.type] = model
+    loss, loss_cpu = float(metrics[device.type]["loss"]), float(metrics["cpu"]["loss"])
+    loss_err = abs(loss - loss_cpu) / abs(loss_cpu)
+    if not np.isfinite(loss) or loss_err > ODO_LOSS_RTOL:
+        raise AssertionError(f"odometry_train: train-step loss {loss} against {loss_cpu}")
+    grad_rel = 0.0
+    for (name, p), q in zip(models[device.type].named_parameters(), models["cpu"].parameters()):
+        scale = float(q.grad.abs().max())
+        err = float((p.grad.cpu() - q.grad).abs().max())
+        grad_rel = max(grad_rel, err / scale)
+        if not err <= ODO_GRAD_REL * scale:
+            raise AssertionError(f"odometry_train: gradient of {name} differs by {err} > {ODO_GRAD_REL} x {scale}")
+    stats_err = 0.0
+    for (name, a), b in zip(models[device.type].state_dict().items(), models["cpu"].state_dict().values()):
+        if "running" in name:
+            stats_err = max(stats_err, check_close(f"odometry_train: {name}", a.cpu(), b, **ODO_STATS_TOL))
+    return {"hw": list(hw), "batch": batch, "steps": steps, "loss": loss, "loss_cpu": loss_cpu,
+            "loss_rel_err": loss_err, "max_grad_err_rel": grad_rel, "max_stats_err": stats_err,
+            "tolerance": {"loss_rtol": ODO_LOSS_RTOL, "grad_rel": ODO_GRAD_REL, "stats": ODO_STATS_TOL}}
+
+
+def odometry_train(device, hw=FULL_HW, steps=5, seed=17, profile: int = 0) -> dict:
+    """ATDNVO training at the reference configuration (``configs/kitti.yaml``:
+    batch 24 windows of 6 flows, lr 1e-2, alpha 1) at KITTI's working
+    size, float32 with TF32 off, on seeded synthetic flows and poses made
+    on the card: ms of each of ``steps`` steps (host clock around each
+    step's synchronised loss; step 1 includes cuDNN's autotuning), peak
+    memory; then the small step against the CPU. ``profile`` more steps
+    run under ``torch.profiler``."""
+    from atdn_vslam_torch.config import load_config
+    from atdn_vslam_torch.models.factory import build_odometry_model
+    from atdn_vslam_torch.training import odometry as train
+
+    t_start = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "configs", "kitti.yaml"))
+    tc = cfg.train
+    model = build_odometry_model(cfg, device, image_hw=hw)
+    state = train.init_state(model, tc, steps, seed=seed)
+    g = torch.Generator(device).manual_seed(seed)
+    shape = (tc.batch_size, tc.sequence_length)
+    flows = torch.randn((*shape, *hw, 2), generator=g, device=device) * 20.0
+    rot = torch.randn((*shape, 3), generator=g, device=device) * 0.02
+    tr = torch.randn((*shape, 3), generator=g, device=device) * 0.5
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    step_ms, losses, grad_norms = [], [], []
+    for _ in range(steps):
+        _sync(device)
+        t0 = time.perf_counter()
+        metrics = train.train_step(state, flows, rot, tr, cfg.loss)
+        losses.append(float(metrics["loss"]))  # the host copy waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        grad_norms.append(float(metrics["grad_norm"]))
+    launches = read_launches()
+    if not (np.isfinite(losses).all() and np.isfinite(grad_norms).all()) or launches != launches_of():
+        raise AssertionError(f"odometry_train: losses {losses}, grad norms {grad_norms}, launches {launches}")
+    profiles = {}
+    if profile:
+        profiles["profile"] = profile_frames(
+            lambda _: float(train.train_step(state, flows, rot, tr, cfg.loss)["loss"]), range(profile), top=12
+        )
+    return {
+        "hw": list(hw), "batch": tc.batch_size, "sequence_length": tc.sequence_length,
+        "flows_per_step": tc.batch_size * tc.sequence_length, "dtype": "float32", "alpha": cfg.loss.alpha,
+        "step_ms": step_ms, "first_step_ms": step_ms[0], "steady_step_ms": float(np.mean(step_ms[1:])),
+        "losses": losses, "grad_norms": grad_norms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None,
+        "launches": launches, "reduced": [f"{steps} steps on one synthetic batch instead of KITTI epochs"],
+        "agreement": odometry_agreement(device), "seconds": time.perf_counter() - t_start, **profiles,
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None, help="also write every phase's result to this JSON file")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="after each slice and each build of the nlanes phase, profile N more "
                         "streaming steps with torch.profiler; in the mapping phase N train "
-                        "steps and N warm queries")
+                        "steps and N warm queries; N solves of each pose-graph case and N "
+                        "odometry train steps")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1519,6 +1838,12 @@ def main(argv=None) -> int:
     emit("apply_probs_backward", card=card, **results["apply_probs_backward"])
     results["mapping"] = mapping(device, os.path.join(work, "map_keyframes"), profile=args.profile)
     emit("mapping", card=card, **results["mapping"])
+    results["loop_closure"] = loop_closure(device, os.path.join(work, "loop_keyframes"))
+    emit("loop_closure", card=card, **results["loop_closure"])
+    results["pose_graph"] = pose_graph(device, profile=args.profile)
+    emit("pose_graph", card=card, **results["pose_graph"])
+    results["odometry_train"] = odometry_train(device, profile=args.profile)
+    emit("odometry_train", card=card, **results["odometry_train"])
     kernels[0]["pass_ms"] = k1_pass_ms(device)
 
     # each kernel's launches from the run of the path that drives it
@@ -1529,13 +1854,15 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_from"] = driver[k["name"]]
         k["launches"] = results[driver[k["name"]]]["launches"][k["name"]]
+        if k["name"] in ("attention_probs", "corr_lookup"):  # the second path that drives them
+            k["launches_loop_closure"] = results["loop_closure"]["launches"][k["name"]]
     results["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extras = ("design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
+    extras = ("launches_loop_closure", "design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
               "max_abs_err_2x")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extras if key in k}
                                   for k in kernels]}))

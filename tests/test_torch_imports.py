@@ -61,8 +61,11 @@ def test_source_has_no_jax_import(path):
 
 
 def test_entry_points_default_to_the_gpu(monkeypatch, tmp_path):
-    """Without a GPU, building the runtime or a model without
-    ``device=`` raises instead of running on the CPU."""
+    """Without a GPU, building the runtime (whose loop closure and
+    pose-graph solve run on its device) or a model without ``device=``,
+    or running a CLI without ``--device``, raises instead of running on
+    the CPU."""
+    from atdn_vslam_torch.cli import evaluate_odometry, slam_demo, train_odometry
     from atdn_vslam_torch.config import Config
     from atdn_vslam_torch.models.factory import build_flow_model, build_odometry_model
     from atdn_vslam_torch.slam import SlamRuntime
@@ -75,7 +78,14 @@ def test_entry_points_default_to_the_gpu(monkeypatch, tmp_path):
         build_flow_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_odometry_model(cfg)
-    assert not (tmp_path / "kf").exists()  # nothing ran
+    for cli, args in (
+        (train_odometry, ["--data-path", str(tmp_path / "data")]),
+        (evaluate_odometry, ["--stage", "1", "--data-path", str(tmp_path / "data")]),
+        (slam_demo, ["--out-dir", str(tmp_path / "demo"), "--data-path", str(tmp_path / "data")]),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(args)
+    assert not (tmp_path / "kf").exists() and not (tmp_path / "demo").exists()  # nothing ran
 
 
 def test_kernel_wrappers_have_no_cpu_fallback_on_other_devices():
