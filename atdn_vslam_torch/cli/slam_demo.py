@@ -47,7 +47,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="frame index of the relocalisation query (the reference's test_slam.py uses 195)")
     p.add_argument("--odometry-checkpoint-dir", type=str, default=None)
     p.add_argument("--stage", type=int, default=1)
-    p.add_argument("--flow-checkpoint", type=str, default=None, help="a reference GMA .pth")
+    p.add_argument("--flow-checkpoint", type=str, default=None,
+                   help="a reference GMA .pth or the weights train_flow writes (--output)")
     p.add_argument("--out-dir", type=str, default="slam_demo_results")
     p.add_argument("--no-plot", action="store_true", help="skip the XZ plot (needs matplotlib)")
     p.add_argument("--device", type=str, default="cuda")

@@ -43,14 +43,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     """Batch norm with the JAX package's statistics (flax
     ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)``).
 
-    It computes in float32 on a float32 copy of its input. In training
+    It computes in float32 on a float32 copy of its input (float64 stays
+    float64). In training
     mode it normalises with the biased batch variance, as torch does, and
     moves ``running_var`` towards the *biased* variance with momentum
     0.1, where ``nn.BatchNorm2d`` takes the unbiased one. Eval mode is
     ``nn.BatchNorm2d``'s. The ``state_dict`` keys are unchanged."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             return super().forward(x)
         # momentum 1 hands back this batch's mean and unbiased variance

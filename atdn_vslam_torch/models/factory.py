@@ -9,6 +9,9 @@ training too;
 MappingVAE computes in bf16 on the GPU when ``mapping.compute_dtype`` is
 ``"bfloat16"`` and in float32 otherwise, from float32 parameters.
 Batch-norm parameters and statistics stay float32 in every case.
+The flow net's training build keeps every parameter float32 and computes
+in the same type as the inference build, under ``torch.autocast``
+(``RAFTGMA.forward``).
 """
 
 from __future__ import annotations
@@ -57,6 +60,27 @@ def build_flow_model(
     )
     model.to(dev)
     return cast_flow_model(model, dtype).eval()
+
+
+def build_flow_train_model(
+    config: Config,
+    device: str | torch.device = "cuda",
+    remat: bool = False,
+) -> RAFTGMA:
+    """RAFTGMA for training, in ``.train()`` mode: float32 parameters (and
+    so float32 optimizer state), computing in the inference build's type
+    (bf16 on the GPU with ``mixed_precision``, float32 on the CPU), with
+    attention by token count and the kernels on the GPU, as the JAX
+    trainer builds it on a TPU (``cli/train_flow.py:141-146``).
+    """
+    dev = resolve_device(device)
+    c = config.flow
+    model = RAFTGMA(
+        iters=c.iters, corr_levels=c.corr_levels,
+        corr_radius=c.corr_radius, hidden_dim=c.hidden_dim, context_dim=c.context_dim,
+        heads=c.num_heads, dtype=flow_compute_dtype(config, dev), remat=remat,
+    )
+    return model.to(dev).train()
 
 
 def cast_flow_model(model: RAFTGMA, dtype: torch.dtype) -> RAFTGMA:

@@ -4,9 +4,10 @@
 conv7 s2 (64) -> norm -> relu -> 2x ResidualBlock(64) -> 2x
 ResidualBlock(96, first s2) -> 2x ResidualBlock(128, first s2) -> 1x1
 conv to ``output_dim``. The feature encoder uses instance norm, the
-context encoder batch norm (inference: running statistics). NCHW, in
-the type of the module's convolution weights; instance norm computes
-its moments in float32.
+context encoder batch norm (flax's statistics in training, the running
+ones in eval mode). NCHW, in the type of the module's convolution
+weights (or the autocast type); instance and batch norm compute in
+float32 and hand back the input's type.
 """
 
 from __future__ import annotations
@@ -15,24 +16,40 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from atdn_vslam_torch.models import blocks
+
 
 class InstanceNorm(nn.Module):
     """Non-affine instance norm (torch InstanceNorm2d defaults), its
-    moments in float32 whatever the input type."""
+    moments in float32, or in float64 for a float64 input."""
 
     def __init__(self, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.instance_norm(x.float(), eps=self.eps).to(x.dtype)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        return F.instance_norm(x32, eps=self.eps).to(x.dtype)
+
+
+class BatchNorm(blocks.BatchNorm2d):
+    """The context encoder's batch norm, float32 parameters and
+    statistics. Training: flax's ``nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5)`` (:class:`blocks.BatchNorm2d`), computed in float32,
+    the output in the input's type. Eval: ``nn.BatchNorm2d``'s, which
+    takes a bf16 input with float32 parameters as it is."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return nn.BatchNorm2d.forward(self, x)
+        return super().forward(x).to(x.dtype)
 
 
 def _norm(kind: str, planes: int) -> nn.Module:
     if kind == "instance":
         return InstanceNorm()
     if kind == "batch":
-        return nn.BatchNorm2d(planes, eps=1e-5)
+        return BatchNorm(planes, eps=1e-5)
     raise ValueError(f"unsupported norm {kind!r}")
 
 

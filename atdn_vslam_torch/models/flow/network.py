@@ -1,5 +1,5 @@
-"""RAFTGMA in test mode: recurrent optical flow with global motion
-aggregation (ref: GMA/core/network.py:26-129).
+"""RAFTGMA: recurrent optical flow with global motion aggregation
+(ref: GMA/core/network.py:26-129), in test mode and in train mode.
 
 The public tensors keep the JAX package's layouts: NHWC images in
 [0, 255], NHWC flows with channels (x, y), the feature-map cache NHWC.
@@ -18,6 +18,18 @@ count N = H/8 * W/8 (``network.py:349-364``): up to 8192 tokens the
 probabilities are materialised once per pair (kernel K1); above, every
 iteration attends anew, through the flash kernel K5 from 16384 tokens
 on (2x KITTI, 752x2464, has 28952).
+
+Train mode (``test_mode=False``, JAX ``network.py:372,417,433``): every
+iteration detaches ``coords1`` first (the reference's
+``coords1.detach()``), computes its upsample mask and upsamples its
+flow; the forward returns the (iters, B, H, W, 2) stack. Gradients reach
+the attention projections through K1's backward and the feature encoder
+through K2's (``ops/attention.py``, ``ops/corr_lookup.py``). With
+float32 parameters and a bf16 ``dtype`` (the training build of
+``models/factory.py``) the forward runs under ``torch.autocast``: the
+convolutions and matrix products compute in bf16 from the float32
+parameters, as flax's ``dtype=bf16`` with float32 ``param_dtype``; the
+norms, coordinates, lookup outputs and upsampling stay float32.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from atdn_vslam_torch.models.flow.extractor import BasicEncoder
 from atdn_vslam_torch.models.flow.gma import AttentionQK
@@ -64,9 +77,12 @@ class RAFTGMA(nn.Module):
         (``network.py:194-201``): levels 1-3 of the pyramid stored
         (B, Hl, Wl, N) and looked up by kernel K2n, which rounds the hat
         weights and row sums through the volume's type; level 0 keeps
-        K2. The JAX flow net applies it in test mode only (``:307``);
-        the port's RAFTGMA has only the test mode, so that rule holds
-        here trivially.
+        K2. The JAX flow net applies it in test mode only (``:307``),
+        and so does the port: train mode takes K2 at every level.
+    :param remat: recompute each training iteration in the backward pass
+        (``torch.utils.checkpoint``, the JAX ``nn.remat`` of
+        ``network.py:401-405``): less memory, the same values and
+        gradients; K2's forward then launches twice per iteration.
     """
 
     def __init__(
@@ -82,10 +98,12 @@ class RAFTGMA(nn.Module):
         position_and_content: bool = False,
         use_pallas: bool | None = None,
         corr_nlanes: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         self.use_pallas = use_pallas
         self.corr_nlanes = corr_nlanes
+        self.remat = remat
         self.iters, self.corr_levels, self.corr_radius = iters, corr_levels, corr_radius
         self.hidden_dim, self.context_dim = hidden_dim, context_dim
         self.dtype = dtype
@@ -123,12 +141,14 @@ class RAFTGMA(nn.Module):
             video frame is then feature-encoded once.
         :param fmap2: feature map of ``image2`` (only together with fmap1).
         :param flow_init: (B, H/8, W/8, 2) initial low-res flow.
+        :param test_mode: False: train mode, the (iters, B, H, W, 2)
+            stack of every iteration's upsampled flow (batch norm follows
+            the module's ``.train()`` / ``.eval()``; ``return_features``
+            is ignored, as in the JAX package).
         :return: (low-res flow (B, H/8, W/8, 2), flow (B, H, W, 2)),
             plus image2's feature map with ``return_features``; with
             ``encode_only`` image1's feature map alone.
         """
-        if not test_mode:
-            raise NotImplementedError("RAFTGMA training mode is not ported yet (ROADMAP M9)")
         if image1.shape[-3] % 8 or image1.shape[-2] % 8:
             raise ValueError(f"Image size {tuple(image1.shape[-3:-1])} not divisible by 8")
         if self.use_pallas is False and image1.device.type == "cuda":
@@ -136,12 +156,14 @@ class RAFTGMA(nn.Module):
                 "RAFTGMA(use_pallas=False) asks for no kernel; on a CUDA device the "
                 "port runs its kernels (use None or True)"
             )
-        with full_float32():
+        # float32 parameters computing in a narrower type: flax's param_dtype/dtype split
+        mixed = self.dtype != torch.float32 and self.fnet.conv1.weight.dtype == torch.float32
+        with full_float32(), torch.autocast(image1.device.type, self.dtype, enabled=mixed):
             return self._forward(
-                image1, image2, flow_init, fmap1, fmap2, return_features, encode_only
+                image1, image2, test_mode, flow_init, fmap1, fmap2, return_features, encode_only
             )
 
-    def _forward(self, image1, image2, flow_init, fmap1, fmap2, return_features, encode_only):
+    def _forward(self, image1, image2, test_mode, flow_init, fmap1, fmap2, return_features, encode_only):
         if encode_only:
             return _nhwc(self.fnet(self._prep(image1)))
         x2 = self._prep(image2)
@@ -153,7 +175,7 @@ class RAFTGMA(nn.Module):
         else:
             f1 = _nchw(fmap1)
             f2 = self.fnet(x2) if fmap2 is None else _nchw(fmap2)
-        if self.corr_nlanes:
+        if self.corr_nlanes and test_mode:
             pyramid = build_corr_pyramid_nlanes(_nhwc(f1), _nhwc(f2), self.corr_levels, self.dtype)
             lookup = lookup_corr_pyramid_nlanes
         else:
@@ -176,6 +198,16 @@ class RAFTGMA(nn.Module):
         coords1 = coords0.expand(b, h8, w8, 2)
         if flow_init is not None:
             coords1 = coords1 + flow_init.float()
+        if not test_mode:
+            preds = []
+            for _ in range(self.iters):
+                args = (net, coords1, coords0, inp, attn, pyramid)
+                if self.remat:
+                    net, coords1, flow_up = checkpoint(self._train_iteration, *args, use_reentrant=False)
+                else:
+                    net, coords1, flow_up = self._train_iteration(*args)
+                preds.append(flow_up)
+            return torch.stack(preds)
         for _ in range(self.iters):
             corr = lookup(pyramid, coords1, self.corr_radius)
             flow = coords1 - coords0
@@ -190,3 +222,16 @@ class RAFTGMA(nn.Module):
         if return_features:
             return (flow_low, flow_up), _nhwc(f2)
         return flow_low, flow_up
+
+    def _train_iteration(self, net, coords1, coords0, inp, attn, pyramid):
+        """One train-mode iteration (JAX ``_UpdateStep`` with
+        ``upsample_in_scan``): (hidden state, coords1, upsampled flow)."""
+        coords1 = coords1.detach()
+        corr = lookup_corr_pyramid(pyramid, coords1, self.corr_radius)
+        flow = coords1 - coords0
+        net, delta_flow = self.update_block(
+            net, inp, _nchw(corr).to(self.dtype), _nchw(flow).to(self.dtype), attn
+        )
+        coords1 = coords1 + _nhwc(delta_flow).float()
+        mask = _nhwc(self.update_block.upsample_mask(net)).float()
+        return net, coords1, convex_upsample(coords1 - coords0, mask)

@@ -191,3 +191,15 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
     per thread)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a kernel that has no backward
+    (the JAX package has no VJP for it either): the ctypes launch leaves
+    its output without a ``grad_fn``, so the gradient would be silently
+    missing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward pass (no VJP in the JAX package either); call it "
+            "under torch.no_grad() or torch.inference_mode(), or on tensors that need no gradient"
+        )

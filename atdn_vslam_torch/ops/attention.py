@@ -121,15 +121,9 @@ def attention_probs_split_plain(
     return p.reshape(b, h, w, -1)
 
 
-def attention_probs_spatial(
+def _attention_probs_kernel(
     q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float | None = None
 ) -> torch.Tensor:
-    """K1: softmax(scale * q k^T) as (B, h, w, N_pad).
-
-    On a CPU tensor this is :func:`attention_probs_spatial_plain`; on a
-    CUDA tensor it launches the CUDA kernel (bf16 or float32 inputs,
-    float32 accumulation) and counts one launch, or raises.
-    """
     if q.device.type == "cpu":
         return attention_probs_spatial_plain(q, k, h, w, scale)
     if q.device.type != "cuda":
@@ -165,7 +159,64 @@ def attention_probs_spatial(
     return out.reshape(b, h, w, n_pad)
 
 
+def attention_probs_backward(
+    q: torch.Tensor, k: torch.Tensor, p: torch.Tensor, dp: torch.Tensor, scale: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's VJP, the JAX package's ``_flash_probs_bwd``
+    (``attention.py:505-521``) in float32 products: P and dP without
+    their pad columns, dS = P * (dP - sum(dP * P)), dq = dS k * scale,
+    dk = dS^T q * scale, each cast to its input's type.
+
+    :param q: (B, N, D); k: (B, N_kv, D); p, dp: (B, h, w, N_pad).
+    """
+    b, n, _ = q.shape
+    n_kv = k.shape[1]
+    pf = p.reshape(b, n, -1)[..., :n_kv].float()
+    dpf = dp.reshape(b, n, -1)[..., :n_kv].float()
+    ds = pf * (dpf - (dpf * pf).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(1, 2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype)
+
+
+class _AttentionProbs(torch.autograd.Function):
+    """K1 forward; the backward is :func:`attention_probs_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, h, w, scale):
+        p = _attention_probs_kernel(q, k, h, w, scale)
+        ctx.save_for_backward(q, k, p)
+        ctx.scale = scale
+        return p
+
+    @staticmethod
+    def backward(ctx, dp):
+        q, k, p = ctx.saved_tensors
+        dq, dk = attention_probs_backward(q, k, p, dp, ctx.scale)
+        return dq, dk, None, None, None
+
+
+def attention_probs_spatial(
+    q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float | None = None
+) -> torch.Tensor:
+    """K1: softmax(scale * q k^T) as (B, h, w, N_pad), differentiable in
+    q and k.
+
+    On a CPU tensor this is :func:`attention_probs_spatial_plain`, which
+    autograd differentiates; on a CUDA tensor it launches the CUDA kernel
+    (bf16 or float32 inputs, float32 accumulation) and counts one launch,
+    or raises. The CUDA forward goes through :class:`_AttentionProbs`,
+    whose backward is the JAX package's VJP.
+    """
+    if q.device.type == "cpu":
+        return attention_probs_spatial_plain(q, k, h, w, scale)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _AttentionProbs.apply(q, k, h, w, scale)
+
+
 attention_probs_spatial.launches = 0
+
+
 
 
 def flash_apply_probs_plain(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -363,7 +414,9 @@ def flash_attend(
     On a CPU tensor this is :func:`flash_attend_plain`; on a CUDA tensor
     it launches the CUDA kernel (q, k and v all bf16 or all float32, D
     and Dv multiples of 16 up to 128, float32 accumulation) and counts
-    one launch, or raises.
+    one launch, or raises. The kernel has no backward, as the JAX
+    package's has no VJP: under grad mode a CUDA input that requires
+    grad raises.
 
     :param q: (B, Nq, D); k: (B, Nk, D); v: (B, Nk, Dv).
     :return: (B, Nq, Dv) in v's type.
@@ -372,6 +425,7 @@ def flash_attend(
         return flash_attend_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attend: no kernel for {q.device}")
+    _kernels.refuse_autograd("flash_attend (K5)", q, k, v)
     b, nq, d = q.shape
     nk, dv = v.shape[1], v.shape[2]
     if k.shape != (b, nk, d) or v.shape[0] != b:

@@ -45,11 +45,14 @@ def corr_dot_tiled(
     one launch, or raises. A bf16 f2 that is not contiguous with a
     16-byte aligned start is staged into a (B, Hl*Wl, C) scratch buffer
     by the kernel's own transposing pass first (one launch all the same).
+    The kernel has no backward: under grad mode a CUDA input that
+    requires grad raises.
     """
     if f1.device.type == "cpu":
         return corr_dot_tiled_plain(f1, f2, inv_sqrt_c, out_dtype)
     if f1.device.type != "cuda":
         raise RuntimeError(f"corr_dot_tiled: no kernel for {f1.device}")
+    _kernels.refuse_autograd("corr_dot_tiled (K3t)", f1, f2)
     if f1.ndim != 3 or f2.ndim != 4:
         raise ValueError(f"f1 {tuple(f1.shape)} must be (B, N, C), f2 {tuple(f2.shape)} (B, Hl, Wl, C)")
     b, n, c = f1.shape

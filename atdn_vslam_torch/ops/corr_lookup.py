@@ -37,17 +37,9 @@ def corr_dot_rowmajor_plain(
     return out.to(out_dtype)
 
 
-def corr_dot_rowmajor(
+def _corr_dot_kernel(
     f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, out_dtype: torch.dtype = torch.bfloat16
 ) -> torch.Tensor:
-    """K3: one level of the correlation volume, ``inv_sqrt_c * f1 @
-    f2^T`` with the scale applied to the float32 sum and one cast.
-
-    On CPU tensors this is :func:`corr_dot_rowmajor_plain`; on CUDA
-    tensors it launches the CUDA kernel (f1 and f2 both bf16 or both
-    float32, C a multiple of 8; bf16 or float32 out) and counts one
-    launch, or raises.
-    """
     if f1.device.type == "cpu":
         return corr_dot_rowmajor_plain(f1, f2, inv_sqrt_c, out_dtype)
     if f1.device.type != "cuda":
@@ -73,6 +65,55 @@ def corr_dot_rowmajor(
     _kernels.check(status, "corr_dot kernel")
     corr_dot_rowmajor.launches += 1
     return out
+
+
+def corr_dot_backward(
+    f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor, inv_sqrt_c: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's VJP, the JAX package's ``_corr_dot_bwd``
+    (``corr_lookup.py:115-126``): with g' = g * inv_sqrt_c in float32,
+    df1 = g' f2 and df2 = g'^T f1, float32 products, each cast to its
+    feature's type.
+
+    :param f1: (B, N, C); f2: (B, M, C); g: (B, N, M).
+    """
+    gf = g.float() * inv_sqrt_c
+    df1 = torch.matmul(gf, f2.float()).to(f1.dtype)
+    df2 = torch.matmul(gf.transpose(1, 2), f1.float()).to(f2.dtype)
+    return df1, df2
+
+
+class _CorrDot(torch.autograd.Function):
+    """K3 forward; the backward is :func:`corr_dot_backward`."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, inv_sqrt_c, out_dtype):
+        ctx.save_for_backward(f1, f2)
+        ctx.inv_sqrt_c = inv_sqrt_c
+        return _corr_dot_kernel(f1, f2, inv_sqrt_c, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        return (*corr_dot_backward(f1, f2, g, ctx.inv_sqrt_c), None, None)
+
+
+def corr_dot_rowmajor(
+    f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, out_dtype: torch.dtype = torch.bfloat16
+) -> torch.Tensor:
+    """K3: one level of the correlation volume, ``inv_sqrt_c * f1 @
+    f2^T`` with the scale applied to the float32 sum and one cast,
+    differentiable in f1 and f2.
+
+    On CPU tensors this is :func:`corr_dot_rowmajor_plain`, which
+    autograd differentiates; on CUDA tensors it launches the CUDA kernel
+    (f1 and f2 both bf16 or both float32, C a multiple of 8; bf16 or
+    float32 out) and counts one launch, or raises. The CUDA forward goes
+    through :class:`_CorrDot`.
+    """
+    if f1.device.type == "cpu":
+        return corr_dot_rowmajor_plain(f1, f2, inv_sqrt_c, out_dtype)
+    return _CorrDot.apply(f1, f2, inv_sqrt_c, out_dtype)
 
 
 corr_dot_rowmajor.launches = 0
@@ -179,16 +220,9 @@ def lookup_corr_pyramid_plain(
     return tokens.reshape(b, h1, w1, -1)
 
 
-def lookup_corr_pyramid(
+def _lookup_kernel(
     pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int = 4
 ) -> torch.Tensor:
-    """K2: the windowed lookup over every level.
-
-    On CPU tensors this is :func:`lookup_corr_pyramid_plain`; on CUDA
-    tensors it launches the CUDA kernel once for all levels (bf16 or
-    float32 volumes, radius 4, at most 4 levels) and counts one launch,
-    or raises.
-    """
     if coords.device.type == "cpu":
         return lookup_corr_pyramid_plain(pyramid, coords, radius)
     if coords.device.type != "cuda":
@@ -223,6 +257,99 @@ def lookup_corr_pyramid(
     _kernels.check(status, "corr_lookup kernel")
     lookup_corr_pyramid.launches += 1
     return out
+
+
+def _hat_weights(centers: torch.Tensor, radius: int, size: int) -> torch.Tensor:
+    """(..., 2r+1, size) separable bilinear weights max(0, 1 - |c + a - r
+    - p|), the JAX package's ``_interp_weights`` (``corr_lookup.py:219-236``):
+    zero outside the level, which is grid_sample's zero padding. The
+    distance is formed as (floor(c) + a - r - p) + frac(c), whole numbers
+    first, so the weights are the lerp weights 1 - frac(c) and frac(c)
+    that K2 and its plain version use; the JAX form rounds c + a - r
+    where it crosses a power of two (up to 2^-17 at c ~ 128)."""
+    offsets = torch.arange(-radius, radius + 1, device=centers.device, dtype=torch.float32)
+    grid = torch.arange(size, device=centers.device, dtype=torch.float32)
+    base = torch.floor(centers)
+    whole = (base[..., None] + offsets)[..., None] - grid
+    frac = (centers - base)[..., None, None]
+    return (1.0 - (whole + frac).abs()).clamp(min=0.0)
+
+
+def lookup_corr_pyramid_backward(
+    shapes: list[tuple[int, int]],
+    dtypes: list[torch.dtype],
+    coords: torch.Tensor,
+    d_window: torch.Tensor,
+    radius: int = 4,
+) -> list[torch.Tensor]:
+    """K2's VJP in the pyramid: the transpose of the JAX package's
+    separable lookup (``corr_lookup.py:287-301``, window = Wy vol Wx^T per
+    query). Per level, with the window's cotangent reordered from the
+    port's dx-major to (dy, dx): d_rows = d_window Wx and d_vol = Wy^T
+    d_rows, float32 sums, cast to the level's type.
+
+    :param shapes: each level's (H_l, W_l); dtypes: each level's type.
+    :param coords: (B, H1, W1, 2) level-0 coordinates (x, y) of the lookup.
+    :param d_window: (B, H1, W1, L*(2r+1)^2) cotangent of its output.
+    :return: each level's cotangent, (B, H1*W1, H_l, W_l).
+    """
+    b, h1, w1, _ = coords.shape
+    n = h1 * w1
+    span = 2 * radius + 1
+    flat = coords.reshape(b, n, 2).float()
+    d_levels = d_window.float().reshape(b, n, len(shapes), span, span)  # (.., dx, dy)
+    out = []
+    for level, ((hl, wl), dtype) in enumerate(zip(shapes, dtypes)):
+        c = flat / (2.0**level)
+        wy = _hat_weights(c[..., 1], radius, hl)  # (B, N, dy, H_l)
+        wx = _hat_weights(c[..., 0], radius, wl)  # (B, N, dx, W_l)
+        d_rows = torch.matmul(d_levels[:, :, level].transpose(-1, -2), wx)  # (B, N, dy, W_l)
+        out.append(torch.matmul(wy.transpose(-1, -2), d_rows).to(dtype))
+    return out
+
+
+class _LookupCorrPyramid(torch.autograd.Function):
+    """K2 forward; the backward gives every level's cotangent
+    (:func:`lookup_corr_pyramid_backward`) and none for the coordinates,
+    which the flow net's training loop detaches (the reference's
+    ``coords1.detach()``)."""
+
+    @staticmethod
+    def forward(ctx, coords, radius, *pyramid):
+        ctx.save_for_backward(coords)
+        ctx.radius = radius
+        ctx.shapes = [tuple(corr.shape[-2:]) for corr in pyramid]
+        ctx.dtypes = [corr.dtype for corr in pyramid]
+        return _lookup_kernel(list(pyramid), coords, radius)
+
+    @staticmethod
+    def backward(ctx, d_window):
+        (coords,) = ctx.saved_tensors
+        grads = lookup_corr_pyramid_backward(ctx.shapes, ctx.dtypes, coords, d_window, ctx.radius)
+        return (None, None, *(g if need else None for g, need in zip(grads, ctx.needs_input_grad[2:])))
+
+
+def lookup_corr_pyramid(
+    pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int = 4
+) -> torch.Tensor:
+    """K2: the windowed lookup over every level, differentiable in the
+    pyramid.
+
+    On CPU tensors this is :func:`lookup_corr_pyramid_plain`, which
+    autograd differentiates; on CUDA tensors it launches the CUDA kernel
+    once for all levels (bf16 or float32 volumes, radius 4, at most 4
+    levels) and counts one launch, or raises. The CUDA forward goes
+    through :class:`_LookupCorrPyramid`; coordinates that require grad
+    raise under grad mode (no coordinate gradient on the card).
+    """
+    if coords.device.type == "cpu":
+        return lookup_corr_pyramid_plain(pyramid, coords, radius)
+    if torch.is_grad_enabled() and coords.requires_grad:
+        raise RuntimeError(
+            "lookup_corr_pyramid (K2) on the GPU gives no gradient in the coordinates; "
+            "detach them, as the flow net's training loop does"
+        )
+    return _LookupCorrPyramid.apply(coords, radius, *pyramid)
 
 
 lookup_corr_pyramid.launches = 0

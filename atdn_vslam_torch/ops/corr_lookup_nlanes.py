@@ -102,7 +102,9 @@ def nlanes_lookup_levels(
     On CPU tensors this is :func:`nlanes_lookup_level_plain` per level;
     on CUDA tensors it launches the CUDA kernel once for all levels (bf16
     or float32 volumes, radius 4, at most 4 levels) and counts one
-    launch, or raises.
+    launch, or raises. The kernel has no backward (the JAX flow net uses
+    it in test mode only): under grad mode a CUDA input that requires
+    grad raises.
 
     :param coords: (B, N, 2) level-0 pixel coords (x, y).
     :return: (B, N, len(vols) * (2r+1)^2) float32, dx-major per level.
@@ -114,6 +116,7 @@ def nlanes_lookup_levels(
         )
     if coords.device.type != "cuda":
         raise RuntimeError(f"nlanes_lookup_levels: no kernel for {coords.device}")
+    _kernels.refuse_autograd("nlanes_lookup_levels (K2n)", coords, *vols)
     levels = len(vols)
     if not 1 <= levels <= 4 or radius != 4 or not 0 <= first_level <= 26:
         raise ValueError(

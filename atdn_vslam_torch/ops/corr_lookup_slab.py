@@ -121,12 +121,15 @@ def lookup_corr_pyramid_slab(
     On CPU tensors this is the plain version; on CUDA tensors it
     launches the CUDA kernel once for all levels (bf16 or float32
     volumes, radius 4, at most 4 levels) and counts one launch, or
-    raises. ``q_blk`` is a TPU tiling parameter: accepted and ignored.
+    raises; the kernel has no backward, so under grad mode a CUDA input
+    that requires grad raises. ``q_blk`` is a TPU tiling parameter:
+    accepted and ignored.
     """
     if coords.device.type == "cpu":
         return lookup_corr_pyramid_slab_plain(pyramid, coords, radius, q_blk, orig_rows)
     if coords.device.type != "cuda":
         raise RuntimeError(f"lookup_corr_pyramid_slab: no kernel for {coords.device}")
+    _kernels.refuse_autograd("lookup_corr_pyramid_slab (K2s)", coords, *pyramid)
     if orig_rows is None:
         pyramid, orig_rows = pad_pyramid_for_slab(pyramid, radius)
     b, h1, w1, _ = coords.shape

@@ -16,7 +16,15 @@ def convex_upsample(
     :param mask: (B, H, W, 9*factor*factor) logits, channel layout
         (9, factor, factor) outermost-first, as the reference's
         ``view(N, 1, 9, 8, 8, H, W)``.
+
+    Computes in float32 on float32 inputs, also inside a
+    ``torch.autocast`` region (which would run the einsum in bf16).
     """
+    with torch.autocast(flow.device.type, enabled=False):
+        return _convex_upsample(flow, mask, factor)
+
+
+def _convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int) -> torch.Tensor:
     b, h, w, _ = flow.shape
     mask = torch.softmax(mask.reshape(b, h, w, 9, factor * factor), dim=3)
     padded = F.pad(flow * factor, (0, 0, 1, 1, 1, 1))

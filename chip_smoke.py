@@ -69,9 +69,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
       float32), 5 steps on seeded synthetic flows and poses, each step's
       ms and the peak memory; at 72x96 one float32 step on the card
       against the CPU (loss, gradients, batch statistics);
-  15. the ``kernels`` line, the card, and last the ``ok`` line.
+  15. flow_train_agreement: one float32 flow train step (TF32 off) at
+      96x192, batch 2, 3 iterations, on the card (K1, K2 and their
+      backward passes) against the CPU: loss, every gradient
+      (``FLOW_GRAD_REL``), batch statistics, parameters after the step;
+      then the same step in the slice's bf16 compute on the card against
+      the float64 step (``TRAIN_BF16_LOSS_RTOL``, ``TRAIN_BF16_REL``);
+  16. flow_train: the flow-training configuration (``FLOW_TRAIN``: full
+      GMA widths, 288x960 crops, batch 6, 12 iterations, bf16 compute
+      with float32 parameters) on shifted synthetic textures: a warm-up
+      step, 5 timed steps with finite losses, K1 once and K2 12 times per
+      step, peak memory, then 2 steps with ``remat=True`` (K2 24 times
+      per step) and their peak memory; K1 and K2 against their plain
+      versions at its batch-6 shapes;
+  17. the ``kernels`` line, the card, and last the ``ok`` line.
 
-The lines of phases 12-14 carry their own ``seconds``.
+After phase 10, k1_backward, k2_backward and k3_backward: each backward
+pass through its autograd.Function at the KITTI shape, float32 against
+autograd through the plain version on the card, then its bf16 ms
+against the bound of its bytes and products (``backward_*`` in the
+kernels line).
+
+The lines of phases 12-16 carry their own ``seconds``.
 
 The kernel lines of phase 3 also cover K2n (the three small KITTI
 levels), K4 (K1's KITTI output), K2s (the row-padded KITTI pyramid) and
@@ -80,8 +99,8 @@ K3t (the KITTI pyramid).
 ``--profile N`` adds N more streaming steps under ``torch.profiler`` to
 each slice's line and to both builds of the nlanes phase, N map train
 steps and N warm queries to the mapping line, N solves to each
-pose-graph case and N train steps to the odometry_train line: device
-time by kernel and the device's idle share.
+pose-graph case and N train steps to the odometry_train and flow_train
+lines: device time by kernel and the device's idle share.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -547,7 +566,7 @@ def corr_dot_occupancy(source: str, device) -> dict:
 
 
 def k3_corr_dot(device, n=94 * 308, c=256, seed=6) -> dict:
-    from atdn_vslam_torch.ops.corr_lookup import corr_dot_rowmajor, corr_dot_rowmajor_plain
+    from atdn_vslam_torch.ops.corr_lookup import corr_dot_backward, corr_dot_rowmajor, corr_dot_rowmajor_plain
 
     g = torch.Generator(device=device).manual_seed(seed)
     f1 = torch.randn((1, n, c), generator=g, device=device).to(torch.bfloat16)
@@ -1762,14 +1781,413 @@ def odometry_train(device, hw=FULL_HW, steps=5, seed=17, profile: int = 0) -> di
     }
 
 
+# ----------------------------------------------------------------------
+# Flow training: the backward passes of K1, K2 and K3, the train step on
+# the card against the CPU, and the training configuration
+# ----------------------------------------------------------------------
+
+# float32 inputs: the same float32 products on both sides, another order
+BACKWARD_TOL_REL = 1e-5  # of each gradient's largest entry
+# one float32 flow train step, card against CPU: each gradient within this
+# share of the largest gradient of its module group. The check's shifts
+# (32-40 px) keep every prediction far from the ground truth, so no L1
+# sign flips between the two devices' roundings (on 3-12 px shifts a few
+# flips moved the update block's gradients by 8e-3 of their largest).
+# What is left: the encoders' weight gradients are small differences of
+# large terms through their norms, and float32 rounding moves them on
+# either device (the CPU's float32 against its float64 on this input and
+# seeds + 3, + 4: fnet 3.0e-3 / 5.5e-3 / 1.4e-3, cnet 1.2e-2 / 9.5e-7 /
+# 9.1e-3; the attention projections and the update block within 9.1e-6).
+# A missing or wrong backward pass moves a group's gradients by ~100%
+FLOW_GRAD_REL = {"fnet": 5e-2, "cnet": 5e-2, "att": 1e-3, "update_block": 1e-3}
+FLOW_LOSS_RTOL = 1e-5
+# bf16 compute against the float64 step (flow_train_agreement): twice the
+# largest distance of the CPU's bf16 step from it over seeds 1-7 and 18
+# (flow_train_agreement run on the CPU: loss 2.4e-5 relative; gradients
+# 0.31, 0.31, 0.051, 0.14 of each group's largest). A zero, a missing or a
+# sign-flipped gradient lies 1-2 group maxima away.
+TRAIN_BF16_LOSS_RTOL = 5e-5
+TRAIN_BF16_REL = {"fnet": 0.6, "cnet": 0.6, "att": 0.1, "update_block": 0.3}
+ADAM_EPS = 1e-8  # training/flow.py make_optimizer
+FLOW_STATS_TOL = {"rtol": 1e-5, "atol": 1e-5}
+# the slice's training configuration (the JAX flow-training CLI's defaults,
+# atdn_vslam_tpu/cli/train_flow.py:62-74,141-146)
+FLOW_TRAIN = {"hw": (288, 960), "batch": 6, "iters": 12, "gamma": 0.8, "lr": 1.25e-4, "wd": 1e-5,
+              "clip": 1.0, "schedule": "warmcos", "steps_total": 50000}
+
+
+def _rel_grad_err(name: str, got: torch.Tensor, ref: torch.Tensor, rel: float, atol: float = 0.0) -> float:
+    """max |got - ref| over max |ref|, checked against ``rel`` (plus
+    ``atol`` for a tensor whose exact gradient is zero)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite gradient")
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if not err <= rel * scale + atol or scale == 0.0:
+        raise AssertionError(f"{name}: gradient differs by {err} > {rel} x {scale} + {atol}")
+    return err / scale
+
+
+def k1_backward(device, hw8=(47, 154), d=128, seed=19) -> dict:
+    """K1's backward on the card (``_AttentionProbs``: the K1 forward, then
+    the JAX VJP's float32 products) at the KITTI shape: float32 inputs
+    against autograd through the plain version on the card; then bf16
+    inputs (the training type), its ms against the products' bound."""
+    from atdn_vslam_torch.ops.attention import (
+        attention_probs_backward,
+        attention_probs_spatial,
+        attention_probs_spatial_plain,
+    )
+
+    h, w = hw8
+    n = h * w
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k = k1_inputs(device, hw8, d, dtype, seed)
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        n_pad = -(-n // 128) * 128
+        dp = torch.randn((1, h, w, n_pad), generator=g, device=device).to(dtype)
+        qt, kt = q.clone().requires_grad_(), k.clone().requires_grad_()
+        p = attention_probs_spatial(qt, kt, h, w, 1.0)
+        if p.grad_fn is None and device.type == "cuda":
+            raise AssertionError("attention_probs: no autograd node on the card")
+        p.backward(dp)
+        if dtype == torch.float32:
+            qr, kr = q.clone().requires_grad_(), k.clone().requires_grad_()
+            attention_probs_spatial_plain(qr, kr, h, w, 1.0).backward(dp)
+            errs = {"dq": _rel_grad_err("attention_probs dq", qt.grad, qr.grad, BACKWARD_TOL_REL),
+                    "dk": _rel_grad_err("attention_probs dk", kt.grad, kr.grad, BACKWARD_TOL_REL)}
+        else:
+            if qt.grad.dtype != torch.bfloat16 or not bool(qt.grad.isfinite().all() & kt.grad.isfinite().all()):
+                raise AssertionError("attention_probs: bf16 gradients are not finite bf16")
+            p = p.detach()
+    # P and dP read once (bf16), q and k read, dq and dk written; the two
+    # products 2 x 2 n n d in float32 (outside the tensor cores)
+    bytes_moved = 2 * p.numel() * 2 + 4 * n * d * 2
+    bound_ms, bound_by = bound(bytes_moved, 4.0 * n * n * d, torch.float32)
+    return {"shape": [1, n, d], "n_pad": p.shape[-1], "dtype": "torch.bfloat16",
+            "max_grad_err_rel_f32": errs, "tolerance_rel": BACKWARD_TOL_REL,
+            "ms": time_ms(lambda: attention_probs_backward(q, k, p, dp, 1.0), device),
+            "bound_ms": bound_ms, "bound_by": bound_by, "calls_per_train_step": 1}
+
+
+def k2_backward(device, hw8=(47, 154), c=256, seed=20, radius=4) -> dict:
+    """K2's backward on the card (``_LookupCorrPyramid``: the K2 forward,
+    then the transpose of the separable lookup) over the KITTI pyramid:
+    float32 volumes against autograd through the plain version on the
+    card; then bf16 volumes (the training type), its ms against the
+    bytes' bound."""
+    from atdn_vslam_torch.ops.corr_lookup import (
+        build_corr_pyramid,
+        lookup_corr_pyramid,
+        lookup_corr_pyramid_backward,
+        lookup_corr_pyramid_plain,
+    )
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f1, f2, coords = lookup_inputs(device, hw8, c, dtype, seed)
+        pyramid = build_corr_pyramid(f1, f2, 4, dtype=dtype)
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        d_window = torch.randn((1, *hw8, 4 * (2 * radius + 1) ** 2), generator=g, device=device)
+        levels = [v.clone().requires_grad_() for v in pyramid]
+        out = lookup_corr_pyramid(levels, coords, radius)
+        if out.grad_fn is None and device.type == "cuda":
+            raise AssertionError("corr_lookup: no autograd node on the card")
+        out.backward(d_window)
+        if dtype == torch.float32:
+            ref = [v.clone().requires_grad_() for v in pyramid]
+            lookup_corr_pyramid_plain(ref, coords, radius).backward(d_window)
+            errs = {f"level{i}": _rel_grad_err(f"corr_lookup level {i}", a.grad, b.grad, BACKWARD_TOL_REL)
+                    for i, (a, b) in enumerate(zip(levels, ref))}
+        elif any(v.grad.dtype != torch.bfloat16 for v in levels):
+            raise AssertionError("corr_lookup: a bf16 pyramid got no bf16 gradient")
+    shapes = [tuple(v.shape[-2:]) for v in pyramid]
+    dtypes = [v.dtype for v in pyramid]
+    # d_window and coords read once, every level's cotangent written once
+    bytes_moved = d_window.numel() * 4 + coords.numel() * 4 + sum(v.numel() * 2 for v in pyramid)
+    bound_ms, bound_by = bound(bytes_moved, 0.0, torch.float32)
+    return {"shape": [1, hw8[0] * hw8[1], 4, (2 * radius + 1) ** 2], "dtype": "torch.bfloat16",
+            "max_grad_err_rel_f32": errs, "tolerance_rel": BACKWARD_TOL_REL,
+            "ms": time_ms(lambda: lookup_corr_pyramid_backward(shapes, dtypes, coords, d_window, radius), device),
+            "bound_ms": bound_ms, "bound_by": bound_by, "calls_per_train_step": 12}
+
+
+def k3_backward(device, n=47 * 154, c=256, seed=21) -> dict:
+    """K3's backward on the card (``_CorrDot``: the K3 forward, then the
+    JAX VJP's two float32 products) at the KITTI level-0 shape: float32
+    features against autograd through the plain version on the card;
+    then bf16 (the ``use_pallas=True`` type), its ms against the bound."""
+    from atdn_vslam_torch.ops.corr_lookup import corr_dot_backward, corr_dot_rowmajor, corr_dot_rowmajor_plain
+
+    inv = 1.0 / c**0.5
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=device).manual_seed(seed)
+        f1 = torch.randn((1, n, c), generator=g, device=device).to(dtype)
+        f2 = torch.randn((1, n, c), generator=g, device=device).to(dtype)
+        gout = torch.randn((1, n, n), generator=g, device=device).to(dtype)
+        a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+        out = corr_dot_rowmajor(a, b, inv, dtype)
+        if out.grad_fn is None and device.type == "cuda":
+            raise AssertionError("corr_dot: no autograd node on the card")
+        out.backward(gout)
+        if dtype == torch.float32:
+            ra, rb = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+            corr_dot_rowmajor_plain(ra, rb, inv, dtype).backward(gout)
+            errs = {"df1": _rel_grad_err("corr_dot df1", a.grad, ra.grad, BACKWARD_TOL_REL),
+                    "df2": _rel_grad_err("corr_dot df2", b.grad, rb.grad, BACKWARD_TOL_REL)}
+    # g read once (bf16), f1 and f2 read, df1 and df2 written; the two
+    # products 2 x 2 n n c in float32
+    bytes_moved = gout.numel() * 2 + 4 * n * c * 2
+    bound_ms, bound_by = bound(bytes_moved, 4.0 * n * n * c, torch.float32)
+    return {"shape": [1, n, n, c], "dtype": "torch.bfloat16", "max_grad_err_rel_f32": errs,
+            "tolerance_rel": BACKWARD_TOL_REL,
+            "ms": time_ms(lambda: corr_dot_backward(f1, f2, gout, inv), device),
+            "bound_ms": bound_ms, "bound_by": bound_by, "calls_per_train_step": 0}
+
+
+def shifted_pairs(batch: int, hw, device, seed: int, max_shift: int = 12, min_shift: int = 0):
+    """A smooth random texture per sample and the same texture shifted by
+    a known whole-pixel offset (dx, dy), each of magnitude ``min_shift``
+    to ``max_shift``: images (B, H, W, 3) in [0, 255], the flow (-dx,
+    -dy) everywhere and every pixel valid, made on ``device``."""
+    h, w = hw
+    g = torch.Generator(device=device).manual_seed(seed)
+    pad = 2 * max_shift
+    coarse = torch.rand((batch, 3, (h + pad) // 4 + 2, (w + pad) // 4 + 2), generator=g, device=device) * 255
+    tex = F.interpolate(coarse, scale_factor=4, mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    mags = torch.randint(min_shift, max_shift + 1, (batch, 2), generator=g, device=device)
+    shifts = mags * (2 * torch.randint(0, 2, (batch, 2), generator=g, device=device) - 1)
+    im1 = tex[:, max_shift : max_shift + h, max_shift : max_shift + w]
+    im2 = torch.stack([
+        tex[i, max_shift + int(dy) : max_shift + int(dy) + h, max_shift + int(dx) : max_shift + int(dx) + w]
+        for i, (dx, dy) in enumerate(shifts.tolist())
+    ])
+    flow = (-shifts.float())[:, None, None, :].expand(batch, h, w, 2).contiguous()
+    return im1.contiguous(), im2.contiguous(), flow, torch.ones((batch, h, w), device=device)
+
+
+def flow_train_agreement(device, hw=(96, 192), batch=2, iters=3, seed=18) -> dict:
+    """One float32 flow train step (TF32 off) on ``device`` (kernels K1
+    and K2 and their backward passes) and on the CPU (plain versions),
+    same seeded weights and shifted pairs: loss, every gradient (within
+    ``FLOW_GRAD_REL`` of its module group's largest gradient), the batch
+    statistics and the parameters after the clipped AdamW step. Then the
+    slice's own compute on ``device``, bf16 under autocast with float32
+    parameters, on the same step: loss and gradients within
+    ``TRAIN_BF16_LOSS_RTOL`` and ``TRAIN_BF16_REL``. The same step's
+    gradients in float64 on the CPU are the yardstick: each group's
+    distance from them is reported for every run, and the CPU's bf16
+    step (CPU autocast, the build that
+    ``tests/test_torch_flow_train.py`` holds to the JAX package's bf16
+    trainer) is reported beside the card's."""
+    from atdn_vslam_torch.config import Config, FlowNetConfig
+    from atdn_vslam_torch.models.factory import build_flow_train_model
+    from atdn_vslam_torch.training import flow as train
+
+    cpu = torch.device("cpu")
+    cfg = Config(flow=FlowNetConfig(iters=iters, mixed_precision=False))
+    weights = seeded_weights(cfg, seed)[0]
+    batch_cpu = shifted_pairs(batch, hw, cpu, seed, max_shift=40, min_shift=32)
+    runs = {}  # name: (state, metrics, launches)
+    for name, dev, mixed in (("card", device, False), ("cpu", cpu, False), ("card_bf16", device, True),
+                             ("cpu_bf16", cpu, True)):
+        model = build_flow_train_model(Config(flow=FlowNetConfig(iters=iters, mixed_precision=mixed)), dev)
+        model.load_state_dict(weights)
+        if mixed:
+            model.dtype = torch.bfloat16  # the training build's type on the card, forced on the CPU
+        state = train.init_state(model, 1e-4, 10, 1e-5, 1.0, seed=None)
+        reset_launches()
+        _, metrics = train.train_step(state, *(x.to(dev) for x in batch_cpu))
+        runs[name] = (state, metrics, read_launches())
+    want = launches_of(attention_probs=1, corr_lookup=iters)
+    if device.type == "cuda" and (runs["card"][2] != want or runs["card_bf16"][2] != want):
+        raise AssertionError(f"flow_train_agreement: launches {runs['card'][2]}, {runs['card_bf16'][2]}")
+    # the float64 yardstick: the same forward and backward, unclipped
+    ref = build_flow_train_model(cfg, "cpu")
+    ref.load_state_dict(weights)
+    ref.double()
+    ref.dtype = torch.float64
+    preds = ref(batch_cpu[0].double(), batch_cpu[1].double(), test_mode=False)
+    loss64 = train.sequence_loss(preds, batch_cpu[2].double(), batch_cpu[3].double())[0]
+    loss64.backward()
+    loss64 = float(loss64.detach())
+    losses = {name: float(m["loss"]) for name, (_, m, _) in runs.items()}
+    loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    if not np.isfinite(losses["card"]) or loss_err > FLOW_LOSS_RTOL:
+        raise AssertionError(f"flow_train_agreement: loss {losses['card']} against {losses['cpu']}")
+    loss_bf16_err = abs(losses["card_bf16"] - loss64) / abs(loss64)
+    if not np.isfinite(losses["card_bf16"]) or loss_bf16_err > TRAIN_BF16_LOSS_RTOL:
+        raise AssertionError(f"flow_train_agreement: bf16 loss {losses['card_bf16']} against {loss64}")
+    # train_step leaves the clipped gradients; unclip them to compare with float64
+    grads = {"float64": {n: p.grad for n, p in ref.named_parameters()}}
+    for name, (state, m, _) in runs.items():
+        unclip = max(1.0, float(m["grad_norm"]))
+        grads[name] = {n: p.grad.double().cpu() * unclip for n, p in state.model.named_parameters()}
+    errs = {}
+    for group in FLOW_GRAD_REL:
+        names = [n for n in grads["cpu"] if n.split(".")[0] == group]
+        scale = max(float(grads["float64"][n].abs().max()) for n in names)
+
+        def dist(a, b):
+            return max(float((grads[a][n] - grads[b][n]).abs().max()) for n in names) / scale  # noqa: B023
+
+        errs[group] = {"card_vs_cpu": dist("card", "cpu"), "cpu_vs_float64": dist("cpu", "float64"),
+                       "card_vs_float64": dist("card", "float64"),
+                       "card_bf16_vs_float64": dist("card_bf16", "float64"),
+                       "cpu_bf16_vs_float64": dist("cpu_bf16", "float64")}
+        if not errs[group]["card_vs_cpu"] <= FLOW_GRAD_REL[group]:
+            raise AssertionError(f"flow_train_agreement: {group} gradients differ by {errs[group]}")
+        if not errs[group]["card_bf16_vs_float64"] <= TRAIN_BF16_REL[group]:
+            raise AssertionError(f"flow_train_agreement: {group} bf16 gradients differ by {errs[group]}")
+    card, ref_cpu = runs["card"][0].model, runs["cpu"][0].model
+    stats_err = 0.0
+    cpu_sd = ref_cpu.state_dict()
+    for name, a in card.state_dict().items():
+        if "running" in name:
+            stats_err = max(stats_err, check_close(f"flow_train_agreement {name}", a.cpu(), cpu_sd[name],
+                                                   **FLOW_STATS_TOL))
+    # Adam's first step moves a weight by lr g / (|g| + eps) and the decay:
+    # where both devices' clipped gradients share a sign and exceed 100 eps
+    # the two steps agree within lr / 100 (and the weight's float32
+    # rounding, 4 ulp); elsewhere the gradient is rounding noise, which may
+    # flip the step's sign: 2 lr
+    lr_used = train.make_schedule(1e-4, 10)(0)
+    params_cpu = dict(ref_cpu.named_parameters())
+    param_err = {"tight": 0.0, "loose": 0.0}  # the largest difference, as a share of its bound
+    n_tight, n_all = 0, 0
+    for n, p in card.named_parameters():
+        q, g_card, g_cpu = params_cpu[n].detach(), p.grad.cpu(), params_cpu[n].grad
+        tight = (g_card.sign() == g_cpu.sign()) & (torch.minimum(g_card.abs(), g_cpu.abs()) > 100 * ADAM_EPS)
+        allowed = torch.where(tight, lr_used / 100, 2.0 * lr_used * 1.001) + 4 * 2.0**-23 * q.abs()
+        share = (p.detach().cpu() - q).abs() / allowed
+        for key, mask in (("tight", tight), ("loose", ~tight)):
+            if bool(mask.any()):
+                param_err[key] = max(param_err[key], float(share[mask].max()))
+        n_tight, n_all = n_tight + int(tight.sum()), n_all + q.numel()
+    if max(param_err.values()) > 1.0:
+        raise AssertionError(f"flow_train_agreement: parameters after the step differ by {param_err} of the bound")
+    return {"hw": list(hw), "batch": batch, "iters": iters, "dtype": "float32; bf16 compute (card_bf16)",
+            "losses": losses, "loss_float64": loss64, "loss_rel_err": loss_err,
+            "loss_bf16_rel_err_vs_float64": loss_bf16_err, "grad_err_of_group_max": errs,
+            "grad_norm": float(runs["card"][1]["grad_norm"]), "max_stats_err": stats_err,
+            "param_err_of_bound_after_step": param_err, "param_share_under_lr_over_100": n_tight / n_all,
+            "lr_step": lr_used, "launches": runs["card"][2], "launches_bf16": runs["card_bf16"][2],
+            "tolerance": {"loss_rtol": FLOW_LOSS_RTOL, "grad_rel_of_group_max": FLOW_GRAD_REL,
+                          "stats": FLOW_STATS_TOL, "bf16_loss_rtol_vs_float64": TRAIN_BF16_LOSS_RTOL,
+                          "bf16_grad_rel_of_group_max_vs_float64": TRAIN_BF16_REL,
+                          "params": "lr/100 where both gradients share a sign and exceed 100 eps, "
+                                    "else 2 lr; plus 4 ulp"}}
+
+
+def _train_shape_kernels(device, batch: int, hw8, d=128, c=256, seed=22) -> dict:
+    """K1 and K2 against their plain versions at the training shapes
+    (batch 6, bf16), which no kernel line covers."""
+    from atdn_vslam_torch.ops.attention import attention_probs_spatial, attention_probs_spatial_plain
+    from atdn_vslam_torch.ops.bilinear import coords_grid
+    from atdn_vslam_torch.ops.corr_lookup import (
+        build_corr_pyramid,
+        lookup_corr_pyramid,
+        lookup_corr_pyramid_plain,
+    )
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = hw8[0] * hw8[1]
+    q = (torch.randn((batch, n, d), generator=g, device=device) * d**-0.5).to(torch.bfloat16)
+    k = torch.randn((batch, n, d), generator=g, device=device).to(torch.bfloat16)
+    k1 = check_close("attention_probs (train shape)", attention_probs_spatial(q, k, *hw8, 1.0),
+                     attention_probs_spatial_plain(q, k, *hw8, 1.0), **K1_TOL)
+    f1 = torch.randn((batch, *hw8, c), generator=g, device=device).to(torch.bfloat16)
+    f2 = torch.randn((batch, *hw8, c), generator=g, device=device).to(torch.bfloat16)
+    pyramid = build_corr_pyramid(f1, f2, 4, dtype=torch.bfloat16)
+    coords = coords_grid(*hw8, device=device)[None] + 4.0 * torch.randn((batch, *hw8, 2), generator=g,
+                                                                        device=device)
+    k2 = check_close("corr_lookup (train shape)", lookup_corr_pyramid(pyramid, coords),
+                     lookup_corr_pyramid_plain(pyramid, coords), **K2_TOL)
+    return {"attention_probs": k1, "corr_lookup": k2}
+
+
+def flow_train(device, steps=5, remat_steps=2, seed=23, profile: int = 0, cfg_over: dict | None = None) -> dict:
+    """The slice's training configuration (``FLOW_TRAIN``: the reference
+    GMA net at full width, 288x960 crops, batch 6, 12 iterations, bf16
+    compute with float32 parameters, the kernels) on synthetic shifted
+    pairs made on the card: one warm-up step (cuDNN's autotuning), then
+    ``steps`` steps timed (host clock around each synchronised step),
+    finite losses, K1 once and K2 12 times per step from the counters,
+    the peak memory; then ``remat_steps`` steps with ``remat=True`` and
+    their peak memory (K2 twice per iteration there). ``profile`` more
+    steps run under ``torch.profiler``."""
+    from atdn_vslam_torch.config import Config, FlowNetConfig
+    from atdn_vslam_torch.models.factory import build_flow_train_model
+    from atdn_vslam_torch.training import flow as train
+
+    t_start = time.perf_counter()
+    c = {**FLOW_TRAIN, **(cfg_over or {})}
+    cfg = Config(flow=FlowNetConfig(iters=c["iters"]))
+    model = build_flow_train_model(cfg, device)
+    model.load_state_dict(seeded_weights(cfg, seed)[0])
+    state = train.init_state(model, c["lr"], c["steps_total"], c["wd"], c["clip"], c["schedule"], seed=None)
+    batch = shifted_pairs(c["batch"], c["hw"], device, seed)
+
+    def step() -> dict:
+        _sync(device)
+        t0 = time.perf_counter()
+        _, m = train.train_step(state, *batch, gamma=c["gamma"])
+        out = {key: float(v) for key, v in m.items()}  # the host copy waits for the step
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    first = step()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    runs = [step() for _ in range(steps)]
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None
+    losses = [first["loss"]] + [r["loss"] for r in runs]
+    want = launches_of(attention_probs=steps, corr_lookup=c["iters"] * steps)
+    if not np.isfinite(losses).all() or (device.type == "cuda" and launches != want):
+        raise AssertionError(f"flow_train: losses {losses}, launches {launches}, not {want}")
+    model.remat = True
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    remat_runs = [step() for _ in range(remat_steps)]
+    remat_launches = read_launches()
+    want = launches_of(attention_probs=remat_steps, corr_lookup=2 * c["iters"] * remat_steps)
+    if not all(np.isfinite(r["loss"]) for r in remat_runs) or (device.type == "cuda" and remat_launches != want):
+        raise AssertionError(f"flow_train: remat losses {remat_runs}, launches {remat_launches}, not {want}")
+    out = {
+        **{k: (list(v) if isinstance(v, tuple) else v) for k, v in c.items()},
+        "dtype": "bf16 compute, float32 parameters", "first_step_s": first["ms"] / 1e3,
+        "step_ms": [r["ms"] for r in runs],
+        "step_ms_median": float(np.median([r["ms"] for r in runs])),
+        "step_ms_p90": float(np.percentile([r["ms"] for r in runs], 90)),
+        "losses": losses, "epe": [r["epe"] for r in runs], "grad_norms": [r["grad_norm"] for r in runs],
+        "launches": launches, "peak_mem_gib": peak,
+        "remat_step_ms": [r["ms"] for r in remat_runs], "remat_launches": remat_launches,
+        "remat_peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None,
+        "reduced": [f"{steps} steps (+1 warm-up, +{remat_steps} with remat) on one synthetic batch of shifted "
+                    "textures instead of KITTI-2015 epochs; seeded random weights, GMA gamma 0.5"],
+        "train_shape_kernels": _train_shape_kernels(device, c["batch"], (c["hw"][0] // 8, c["hw"][1] // 8)),
+    }
+    model.remat = False
+    if profile:
+        out["profile"] = profile_frames(lambda _: step(), range(profile), top=15)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None, help="also write every phase's result to this JSON file")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="after each slice and each build of the nlanes phase, profile N more "
                         "streaming steps with torch.profiler; in the mapping phase N train "
-                        "steps and N warm queries; N solves of each pose-graph case and N "
-                        "odometry train steps")
+                        "steps and N warm queries; N solves of each pose-graph case, N "
+                        "odometry train steps and N flow train steps")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1836,6 +2254,10 @@ def main(argv=None) -> int:
     emit("entry_points", card=card, **results["entry_points"])
     results["apply_probs_backward"] = k4_backward(device)
     emit("apply_probs_backward", card=card, **results["apply_probs_backward"])
+    for name, fn in (("k1_backward", k1_backward), ("k2_backward", k2_backward), ("k3_backward", k3_backward)):
+        results[name] = fn(device)
+        emit(name, card=card, **results[name])
+    torch.cuda.empty_cache()
     results["mapping"] = mapping(device, os.path.join(work, "map_keyframes"), profile=args.profile)
     emit("mapping", card=card, **results["mapping"])
     results["loop_closure"] = loop_closure(device, os.path.join(work, "loop_keyframes"))
@@ -1844,6 +2266,11 @@ def main(argv=None) -> int:
     emit("pose_graph", card=card, **results["pose_graph"])
     results["odometry_train"] = odometry_train(device, profile=args.profile)
     emit("odometry_train", card=card, **results["odometry_train"])
+    torch.cuda.empty_cache()
+    results["flow_train_agreement"] = flow_train_agreement(device)
+    emit("flow_train_agreement", card=card, **results["flow_train_agreement"])
+    results["flow_train"] = flow_train(device, profile=args.profile)
+    emit("flow_train", card=card, **results["flow_train"])
     kernels[0]["pass_ms"] = k1_pass_ms(device)
 
     # each kernel's launches from the run of the path that drives it
@@ -1854,15 +2281,22 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_from"] = driver[k["name"]]
         k["launches"] = results[driver[k["name"]]]["launches"][k["name"]]
-        if k["name"] in ("attention_probs", "corr_lookup"):  # the second path that drives them
+        if k["name"] in ("attention_probs", "corr_lookup"):  # the other paths that drive them
             k["launches_loop_closure"] = results["loop_closure"]["launches"][k["name"]]
+            k["launches_flow_train"] = results["flow_train"]["launches"][k["name"]]
+    backward = {"attention_probs": "k1_backward", "corr_lookup": "k2_backward", "corr_dot": "k3_backward"}
+    for k in kernels:
+        if k["name"] in backward:
+            r = results[backward[k["name"]]]
+            k.update(backward_ms=r["ms"], backward_bound_ms=r["bound_ms"], backward_bound_by=r["bound_by"])
     results["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extras = ("launches_loop_closure", "design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
+    extras = ("launches_loop_closure", "launches_flow_train", "backward_ms", "backward_bound_ms",
+              "backward_bound_by", "design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
               "max_abs_err_2x")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extras if key in k}
                                   for k in kernels]}))

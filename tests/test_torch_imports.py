@@ -65,9 +65,16 @@ def test_entry_points_default_to_the_gpu(monkeypatch, tmp_path):
     pose-graph solve run on its device) or a model without ``device=``,
     or running a CLI without ``--device``, raises instead of running on
     the CPU."""
-    from atdn_vslam_torch.cli import evaluate_odometry, slam_demo, train_odometry
+    from atdn_vslam_torch.cli import (
+        evaluate_flow,
+        evaluate_odometry,
+        precompute_flows,
+        slam_demo,
+        train_flow,
+        train_odometry,
+    )
     from atdn_vslam_torch.config import Config
-    from atdn_vslam_torch.models.factory import build_flow_model, build_odometry_model
+    from atdn_vslam_torch.models.factory import build_flow_model, build_flow_train_model, build_odometry_model
     from atdn_vslam_torch.slam import SlamRuntime
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -78,14 +85,20 @@ def test_entry_points_default_to_the_gpu(monkeypatch, tmp_path):
         build_flow_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_odometry_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_flow_train_model(cfg)
     for cli, args in (
         (train_odometry, ["--data-path", str(tmp_path / "data")]),
         (evaluate_odometry, ["--stage", "1", "--data-path", str(tmp_path / "data")]),
         (slam_demo, ["--out-dir", str(tmp_path / "demo"), "--data-path", str(tmp_path / "data")]),
+        (train_flow, ["--dataset", "kitti", "--root", str(tmp_path / "k15"), "--output", str(tmp_path / "o.pth")]),
+        (evaluate_flow, ["--dataset", "kitti", "--root", str(tmp_path / "k15")]),
+        (precompute_flows, ["--sequence", "00", "--data-path", str(tmp_path / "data")]),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(args)
     assert not (tmp_path / "kf").exists() and not (tmp_path / "demo").exists()  # nothing ran
+    assert not (tmp_path / "o.pth").exists()
 
 
 def test_kernel_wrappers_have_no_cpu_fallback_on_other_devices():

@@ -197,3 +197,24 @@ def test_raftgma_corr_nlanes_matches_default_build(nlanes_nets):
         want = default(torch.from_numpy(im1), torch.from_numpy(im2))
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-4)
+
+
+def test_nlanes_non_finite_coordinates_against_jax():
+    """A deliberate difference (ROADMAP Queue 3): for an infinite
+    coordinate the JAX Pallas ``nlanes_lookup_level`` (interpret mode)
+    gives a zero window, the port a NaN one, as the port's K2 does; a NaN
+    coordinate gives NaN in both, and the finite queries beside them
+    agree (1e-5)."""
+    h, w = 10, 13
+    f1, f2 = _maps(10, h, w)
+    pyr = jnl.build_corr_pyramid_nlanes(jnp.asarray(f1), jnp.asarray(f2), 3, dtype=jnp.float32)
+    coords = _coords(11, 1, h, w, -2.0, 2.0).reshape(1, h * w, 2)
+    coords[0, 4] = (np.nan, 3.0)
+    coords[0, 5] = (np.inf, 3.0)
+    coords[0, 6] = (2.0, -np.inf)
+    want = np.asarray(jnl.nlanes_lookup_level(pyr[1], jnp.asarray(coords), 1, 4, interpret=True))
+    got = nl.nlanes_lookup_level_plain(torch.from_numpy(np.array(pyr[1])), torch.from_numpy(coords), 1, 4).numpy()
+    assert np.isnan(want[0, 4]).all() and np.isnan(got[0, 4]).all()
+    assert (want[0, 5:7] == 0).all() and np.isnan(got[0, 5:7]).all()
+    finite = np.isfinite(coords[0]).all(-1)
+    np.testing.assert_allclose(got[0, finite], want[0, finite][:, corr_window_perm(1, 4)], rtol=1e-5, atol=1e-5)

@@ -107,3 +107,24 @@ def test_slab_wrapper_on_cpu_is_plain():
     assert slab.lookup_corr_pyramid_slab.launches == before
     want = slab.lookup_corr_pyramid_slab_plain(padded, coords, 4, orig_rows=rows)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_slab_non_finite_coordinates_against_jax():
+    """A deliberate difference (ROADMAP Queue 3): for an infinite
+    coordinate the JAX Pallas ``lookup_corr_pyramid_slab`` (interpret
+    mode) gives a zero window, the port a NaN one, as the port's K2 does;
+    a NaN coordinate gives NaN in both; finite queries agree (1e-5)."""
+    h, w = 12, 11
+    jp, tp = _pyramids(12, h, w)
+    coords = _coords(13, h, w, 2.0).astype(np.float32)
+    coords[0, 1, 2] = (np.nan, 3.0)
+    coords[0, 1, 3] = (np.inf, 3.0)
+    coords[0, 1, 4] = (2.0, -np.inf)
+    jpad, rows = jslab.pad_pyramid_for_slab(jp, 4)
+    want = np.asarray(jslab.lookup_corr_pyramid_slab(jpad, jnp.asarray(coords), 4, orig_rows=rows, interpret=True))
+    padded, trows = slab.pad_pyramid_for_slab(tp, 4)
+    got = slab.lookup_corr_pyramid_slab_plain(padded, torch.from_numpy(coords), 4, orig_rows=trows).numpy()
+    assert np.isnan(want[0, 1, 2]).all() and np.isnan(got[0, 1, 2]).all()
+    assert (want[0, 1, 3:5] == 0).all() and np.isnan(got[0, 1, 3:5]).all()
+    finite = np.isfinite(coords[0]).all(-1)
+    np.testing.assert_allclose(got[0][finite], want[0][finite][:, corr_window_perm(4, 4)], rtol=1e-5, atol=1e-5)
