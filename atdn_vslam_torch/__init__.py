@@ -10,19 +10,25 @@ Ported so far: the streaming odometry step (``slam.SlamRuntime`` in
 odometry mode) with RAFTGMA in test mode and ATDNVO; the keyframe map
 (MappingVAE, trained by ``end_odometry``) and relocalisation against it;
 loop closure and the pose-graph solve; ATDNVO training, odometry
-evaluation and the SLAM demo; the reference checkpoint loader.
+evaluation and the SLAM demo; flow training; the serving export; GMA's
+positional modes; the Kalman and plotting CLIs and the remaining
+utilities; the reference checkpoint loader.
 
   data/       KITTI poses, flow caches and windows, flow file formats
   eval/       trajectory metrics, KITTI trajectory files, plots
   geometry/   SE(3) pose math, the pose-graph solve
   models/     ATDNVO, the GMA flow network, MappingVAE, the factory
               that makes them from a config
-  ops/        attention probabilities (kernel K1), correlation pyramid
-              and window lookup (kernel K2), bilinear sampling, convex
-              upsampling, padding, the kernel build
+  ops/        attention (kernels K1, K4, K5), correlation pyramid and
+              window lookups (K2, K3, K2n, K2s, K3t), bilinear sampling,
+              convex upsampling, padding, the kernel build and the
+              kernels' torch.library ops (atdn::*)
   slam/       runtime state machine and keyframe store
   training/   ATDNVO and MappingVAE training and their losses
-  cli/        train_odometry, evaluate_odometry, slam_demo, train_mapping
+  cli/        train_odometry, evaluate_odometry, slam_demo, train_mapping,
+              train_flow, evaluate_flow, precompute_flows, kalman, visualize
+  utils/      device, precision, timing, profiling and depth helpers
+  serving.py  torch.export of the streaming step and the frame encoder
   checkpoint.py  reference .pth -> state_dict
   convert.py  JAX variables -> state_dict
 """

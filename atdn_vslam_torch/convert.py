@@ -19,6 +19,9 @@ What is inverted:
   * flax ``LayerNorm`` scale/bias -> ``norm.weight``/``norm.bias``;
   * the correlation window of ``convc1``'s input channels, dy-major
     (JAX) -> dx-major (reference);
+  * the positional tables ``AttentionQK_0/RelPosEmb_0/rel_height`` and
+    ``rel_width`` -> ``att.pos_emb.rel_height.weight`` and
+    ``att.pos_emb.rel_width.weight``, unchanged;
   * flax's ``nn.ConvTranspose`` kernel (kH, kW, I, O), which correlates
     the dilated input with the kernel as stored, -> torch's
     ``ConvTranspose2d`` weight (I, O, kH, kW), which flips it spatially:
@@ -108,6 +111,10 @@ def gma_state_dict_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     _gma_encoder(sd, "fnet", params["BasicEncoder_0"], None)
     _gma_encoder(sd, "cnet", params["BasicEncoder_1"], stats["BasicEncoder_1"])
     sd["att.to_qk.weight"] = _conv(params["AttentionQK_0"]["Conv_0"]["kernel"])
+    pos = params["AttentionQK_0"].get("RelPosEmb_0")
+    if pos is not None:  # the positional modes: (2 max_pos - 1, dim_head) tables as they are
+        sd["att.pos_emb.rel_height.weight"] = _t(pos["rel_height"])
+        sd["att.pos_emb.rel_width.weight"] = _t(pos["rel_width"])
 
     up = params["update"]["GMAUpdateBlock_0"]
     enc = up["BasicMotionEncoder_0"]

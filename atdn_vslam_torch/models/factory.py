@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from atdn_vslam_torch.config import Config
+from atdn_vslam_torch.models.flow.gma import RelPosEmb
 from atdn_vslam_torch.models.flow.network import RAFTGMA
 from atdn_vslam_torch.models.mapping import MappingVAE
 from atdn_vslam_torch.models.odometry import ATDNVO
@@ -85,11 +86,12 @@ def build_flow_train_model(
 
 def cast_flow_model(model: RAFTGMA, dtype: torch.dtype) -> RAFTGMA:
     """``model`` in ``dtype``, in place, with its batch-norm parameters
-    and statistics kept float32."""
+    and statistics, and the positional embeddings (which the JAX package
+    keeps and scores in float32), kept float32."""
     if dtype != torch.float32:
         model.to(dtype)
         for m in model.modules():
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, (nn.BatchNorm2d, RelPosEmb)):
                 m.float()
     return model
 
@@ -129,7 +131,8 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
     ``torch.Generator`` so that a seed gives the same weights on any
     device: uniform(+-1/sqrt(fan_in)) for convolutions (transposed ones
     too), linear layers and LSTM cells (PyTorch's own default bounds),
-    identity batch and layer norm.
+    identity batch and layer norm, standard normal embeddings (GMA's
+    positional ones: the JAX package's ``normal(1.0)``).
     GMA's ``gamma`` keeps its reference initial value 0."""
     g = torch.Generator().manual_seed(seed)
 
@@ -147,4 +150,6 @@ def init_params(module: nn.Module, seed: int) -> nn.Module:
                 fill(p, 1.0 / math.sqrt(m.hidden_size))
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.empty(m.weight.shape).normal_(generator=g))
     return module

@@ -17,7 +17,10 @@ K2n). The attention follows the JAX package's schedule by token
 count N = H/8 * W/8 (``network.py:349-364``): up to 8192 tokens the
 probabilities are materialised once per pair (kernel K1); above, every
 iteration attends anew, through the flash kernel K5 from 16384 tokens
-on (2x KITTI, 752x2464, has 28952).
+on (2x KITTI, 752x2464, has 28952). The positional modes
+(``position_only``, ``position_and_content``) add GMA's relative-position
+bias to the scores, on the same schedule but without K1 or K5
+(``models/flow/gma.py``), and are refused above 8192 tokens.
 
 Train mode (``test_mode=False``, JAX ``network.py:372,417,433``): every
 iteration detaches ``coords1`` first (the reference's
@@ -109,9 +112,10 @@ class RAFTGMA(nn.Module):
         self.dtype = dtype
         self.fnet = BasicEncoder(256, "instance")
         self.cnet = BasicEncoder(hidden_dim + context_dim, "batch")
+        self.position_only = position_only
         self.update_block = GMAUpdateBlock(  # False reaches attend as None
             hidden_dim, heads, corr_levels, corr_radius,
-            use_pallas=None if use_pallas is False else use_pallas,
+            use_pallas=None if use_pallas is False else use_pallas, position_only=position_only,
         )
         self.att = AttentionQK(
             context_dim, heads, 128, position_only=position_only,
@@ -187,12 +191,14 @@ class RAFTGMA(nn.Module):
         cnet = self.cnet(self._prep(image1))
         net, inp = torch.split(cnet, [self.hidden_dim, self.context_dim], dim=1)
         net, inp = torch.tanh(net), F.relu(inp)
-        q, k = self.att(inp)
+        q, k, bias = self.att(inp)
         b, _, h8, w8 = net.shape
         if self.use_pallas is not True and h8 * w8 <= _attention._MATERIALIZE_MAX_TOKENS:
-            attn = attention_probs_spatial(q, k, h8, w8, scale=1.0)
+            attn = attention_probs_spatial(
+                q, k, h8, w8, scale=1.0, bias=bias, position_only=self.position_only
+            )
         else:  # attend anew in every iteration (the aggregator dispatches)
-            attn = (q, k)
+            attn = (q, k, bias)
 
         coords0 = coords_grid(h8, w8, device=net.device)[None]
         coords1 = coords0.expand(b, h8, w8, 2)

@@ -82,6 +82,7 @@ class GMAUpdateBlock(nn.Module):
         corr_levels: int = 4,
         corr_radius: int = 4,
         use_pallas: bool | None = None,
+        position_only: bool = False,
     ):
         super().__init__()
         self.encoder = BasicMotionEncoder(corr_levels, corr_radius)
@@ -90,7 +91,9 @@ class GMAUpdateBlock(nn.Module):
         self.mask = nn.Sequential(
             nn.Conv2d(128, 256, 3, padding=1), nn.ReLU(inplace=True), nn.Conv2d(256, 64 * 9, 1)
         )
-        self.aggregator = Aggregate(dim=128, heads=heads, dim_head=128, use_pallas=use_pallas)
+        self.aggregator = Aggregate(
+            dim=128, heads=heads, dim_head=128, use_pallas=use_pallas, position_only=position_only
+        )
 
     def forward(
         self,
@@ -98,10 +101,10 @@ class GMAUpdateBlock(nn.Module):
         inp: torch.Tensor,
         corr: torch.Tensor,
         flow: torch.Tensor,
-        attn: torch.Tensor | tuple[torch.Tensor, torch.Tensor],
+        attn: torch.Tensor | tuple[torch.Tensor, torch.Tensor, torch.Tensor | None],
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """:param attn: the materialised probabilities or the (q, k) pair,
-        passed through to :class:`Aggregate`."""
+        """:param attn: the materialised probabilities or the (q, k, bias)
+        triple, passed through to :class:`Aggregate`."""
         motion = self.encoder(flow, corr)
         motion_global = self.aggregator(attn, motion)
         net = self.gru(net, torch.cat([inp, motion, motion_global], dim=1))

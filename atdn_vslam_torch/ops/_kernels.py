@@ -8,8 +8,15 @@ shared headers (``csrc/*.cuh``) and the flags, so an edited source or
 header rebuilds and an unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per source, all at once.
 
-Nothing here runs at import time: the CPU tests import every module of
-the port on a machine without ``nvcc`` or a GPU.
+Every kernel is also a ``torch.library`` custom op under the namespace
+``atdn`` (:func:`define_op`): its CUDA implementation launches the
+kernel, its CPU implementation is the kernel's plain PyTorch version,
+and its fake implementation gives the output's shape, type and strides
+from the arguments alone, so ``torch.export`` traces through every
+kernel and a loaded artifact launches it (``serving.py``).
+
+Nothing here builds at import time: the CPU tests import every module
+of the port on a machine without ``nvcc`` or a GPU.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -193,6 +201,13 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def require_cuda(name: str, x: torch.Tensor) -> None:
+    """Raise unless ``x`` lies on a CUDA device: a wrapper takes its plain
+    version on the CPU, its kernel on a CUDA device, and nothing else."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for {x.device}")
+
+
 def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
     """Raise when autograd would record a kernel that has no backward
     (the JAX package has no VJP for it either): the ctypes launch leaves
@@ -203,3 +218,25 @@ def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
             f"{name} has no backward pass (no VJP in the JAX package either); call it "
             "under torch.no_grad() or torch.inference_mode(), or on tensors that need no gradient"
         )
+
+
+#: the ``torch.library`` namespace of the kernels' custom ops
+_LIBRARY = torch.library.Library("atdn", "DEF")
+
+
+def define_op(name: str, schema: str, plain: Callable, fake: Callable, cuda: Callable) -> None:
+    """Register the custom op ``atdn::<name>`` with ``schema`` (its
+    arguments and result, e.g. ``"(Tensor q, Tensor k, int h, int w,
+    float scale) -> Tensor"``; no argument is mutated): ``plain`` on CPU
+    tensors, ``cuda`` (the launch, which counts it) on CUDA tensors,
+    ``fake`` under fake and meta tensors. Each returns a fresh tensor,
+    never a view of an input. Callers reach the op as
+    ``torch.ops.atdn.<name>``. The op has no autograd kernel: the
+    wrappers call it inside their ``autograd.Function``s or refuse
+    autograd first. Registered through the dispatcher directly, so a call
+    costs one Python kernel call (and imports nothing of
+    ``torch._dynamo``, which ``torch.library.custom_op``'s kernels do)."""
+    _LIBRARY.define(name + schema)
+    _LIBRARY.impl(name, plain, "CPU")
+    _LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"atdn::{name}", fake, lib=_LIBRARY)

@@ -27,6 +27,15 @@ Kernel K4 (``csrc/apply_probs.cu``) replaces the TPU kernel
 K1's probabilities, reached through ``apply_attention_probs(...,
 use_pallas=True)`` as in the JAX package; the default read stays a
 ``torch.matmul``.
+
+Each kernel launches only through its custom op (``atdn::attention_probs``,
+``atdn::flash_attend``, ``atdn::apply_probs``; ``_kernels.define_op``),
+whose CUDA implementation counts the launch.
+
+The positional modes of GMA (a relative-position ``bias`` added to the
+scores, or the bias alone with ``position_only``) take the torch path,
+scores plus bias and a float32 softmax, never K1 or K5, as the JAX
+package takes XLA's (``attention.py:682-748,954-955``).
 """
 
 from __future__ import annotations
@@ -121,13 +130,7 @@ def attention_probs_split_plain(
     return p.reshape(b, h, w, -1)
 
 
-def _attention_probs_kernel(
-    q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float | None = None
-) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return attention_probs_spatial_plain(q, k, h, w, scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"attention_probs_spatial: no kernel for {q.device}")
+def _attention_probs_cuda(q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float) -> torch.Tensor:
     b, n, d = q.shape
     n_kv = k.shape[1]
     if n != h * w:
@@ -138,7 +141,6 @@ def _attention_probs_kernel(
         raise TypeError(f"attention_probs_spatial takes bf16 or float32, got {q.dtype}/{k.dtype}")
     if d % 16 or d > 256:
         raise ValueError(f"head width {d} must be a multiple of 16 and at most 256")
-    scale = d**-0.5 if scale is None else scale
     q, k = _kernels.aligned(q), _kernels.aligned(k)
     n_pad = _round_up(n_kv, _PROBS_TILE)
     out = torch.empty((b, n, n_pad), dtype=q.dtype, device=q.device)
@@ -157,6 +159,17 @@ def _attention_probs_kernel(
     _kernels.check(status, "attention_probs kernel")
     attention_probs_spatial.launches += 1
     return out.reshape(b, h, w, n_pad)
+
+
+def _attention_probs_fake(q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float) -> torch.Tensor:
+    # N_pad by the kernel's rule; the key split is a workspace of the launch
+    return q.new_empty((q.shape[0], h, w, _round_up(k.shape[1], _PROBS_TILE)))
+
+
+_kernels.define_op(
+    "attention_probs", "(Tensor q, Tensor k, int h, int w, float scale) -> Tensor",
+    attention_probs_spatial_plain, _attention_probs_fake, _attention_probs_cuda,
+)
 
 
 def attention_probs_backward(
@@ -184,7 +197,7 @@ class _AttentionProbs(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, h, w, scale):
-        p = _attention_probs_kernel(q, k, h, w, scale)
+        p = torch.ops.atdn.attention_probs(q, k, h, w, scale)
         ctx.save_for_backward(q, k, p)
         ctx.scale = scale
         return p
@@ -196,20 +209,63 @@ class _AttentionProbs(torch.autograd.Function):
         return dq, dk, None, None, None
 
 
+def _scores(
+    q: torch.Tensor, k: torch.Tensor, scale: float, bias: torch.Tensor | None, position_only: bool
+) -> torch.Tensor:
+    """float32 scale q k^T [+ bias], or the bias alone with
+    ``position_only`` (ref: GMA gma.py:62-71)."""
+    if position_only:
+        if bias is None:
+            raise ValueError("position_only attention requires a bias")
+        return bias.float()
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    return s if bias is None else s + bias.float()
+
+
+def attention_probs_biased(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    h: int,
+    w: int,
+    scale: float,
+    bias: torch.Tensor | None,
+    position_only: bool = False,
+) -> torch.Tensor:
+    """softmax(scale q k^T + bias), or softmax(bias) with
+    ``position_only``, in float32, cast to q's type, as (B, h, w, N)
+    with no pad columns: the JAX package's XLA path of
+    ``attention_probs_spatial`` (``attention.py:729-748``)."""
+    p = torch.softmax(_scores(q, k, scale, bias, position_only), dim=-1)
+    return p.to(q.dtype).reshape(q.shape[0], h, w, -1)
+
+
 def attention_probs_spatial(
-    q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float | None = None
+    q: torch.Tensor,
+    k: torch.Tensor,
+    h: int,
+    w: int,
+    scale: float | None = None,
+    bias: torch.Tensor | None = None,
+    position_only: bool = False,
 ) -> torch.Tensor:
     """K1: softmax(scale * q k^T) as (B, h, w, N_pad), differentiable in
     q and k.
 
     On a CPU tensor this is :func:`attention_probs_spatial_plain`, which
     autograd differentiates; on a CUDA tensor it launches the CUDA kernel
-    (bf16 or float32 inputs, float32 accumulation) and counts one launch,
-    or raises. The CUDA forward goes through :class:`_AttentionProbs`,
-    whose backward is the JAX package's VJP.
+    through ``atdn::attention_probs`` (bf16 or float32 inputs, float32
+    accumulation) and counts one launch, or raises. The CUDA forward goes
+    through :class:`_AttentionProbs`, whose backward is the JAX package's
+    VJP. With a positional ``bias`` (B, N, N) or ``position_only``, the
+    probabilities are :func:`attention_probs_biased`, (B, h, w, N), on
+    every device.
     """
+    if bias is not None or position_only:
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        return attention_probs_biased(q, k, h, w, scale, bias, position_only)
     if q.device.type == "cpu":
         return attention_probs_spatial_plain(q, k, h, w, scale)
+    _kernels.require_cuda("attention_probs_spatial", q)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return _AttentionProbs.apply(q, k, h, w, scale)
 
@@ -268,11 +324,7 @@ def _apply_probs_counters_for(device: torch.device, stream: int, tiles: int) -> 
     return counters
 
 
-def _apply_probs_kernel(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if probs.device.type == "cpu":
-        return flash_apply_probs_plain(probs, v)
-    if probs.device.type != "cuda":
-        raise RuntimeError(f"flash_apply_probs: no kernel for {probs.device}")
+def _apply_probs_cuda(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if probs.ndim != 4 or v.ndim != 3 or v.shape[0] != probs.shape[0] or v.device != probs.device:
         raise ValueError(
             f"probs {tuple(probs.shape)} on {probs.device} must be (B, H, W, K) and v "
@@ -307,6 +359,19 @@ def _apply_probs_kernel(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _apply_probs_fake(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return v.new_empty((*probs.shape[:3], v.shape[2]))
+
+
+def _apply_probs_cpu(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return flash_apply_probs_plain(probs, v)  # looked up per call, so a test can wrap it
+
+
+_kernels.define_op(
+    "apply_probs", "(Tensor probs, Tensor v) -> Tensor", _apply_probs_cpu, _apply_probs_fake, _apply_probs_cuda
+)
+
+
 class _FlashApplyProbs(torch.autograd.Function):
     """K4 forward; the backward is the JAX package's custom VJP
     (``attention.py:872-886``), two plain float32 products: dv = P^T
@@ -316,7 +381,7 @@ class _FlashApplyProbs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, probs, v):
         ctx.save_for_backward(probs, v)
-        return _apply_probs_kernel(probs, v)
+        return torch.ops.atdn.apply_probs(probs, v)
 
     @staticmethod
     def backward(ctx, dout):
@@ -338,11 +403,13 @@ def flash_apply_probs(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K4: out = probs @ v over spatial probabilities (contract of
     :func:`flash_apply_probs_plain`), differentiable in both.
 
-    On a CPU tensor the forward is the plain version; on a CUDA tensor
-    it launches the CUDA kernel (probs and v both bf16 or both float32,
-    K a multiple of 8, Dv a multiple of 16 up to 128, float32
-    accumulation) and counts one launch, or raises.
+    The forward is ``atdn::apply_probs``: on a CPU tensor the plain
+    version; on a CUDA tensor it launches the CUDA kernel (probs and v
+    both bf16 or both float32, K a multiple of 8, Dv a multiple of 16 up
+    to 128, float32 accumulation) and counts one launch, or raises.
     """
+    if probs.device.type != "cpu":
+        _kernels.require_cuda("flash_apply_probs", probs)
     return _FlashApplyProbs.apply(probs, v)
 
 
@@ -376,18 +443,24 @@ def apply_attention_probs(
 
 
 def attend_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float | None = None,
+    bias: torch.Tensor | None = None,
+    position_only: bool = False,
 ) -> torch.Tensor:
-    """out = softmax(scale * q k^T) v, the JAX package's
+    """out = softmax(scale * q k^T [+ bias]) v, the JAX package's
     ``attend_reference``: float32 scores, softmax, the probabilities cast
     to v's type, the product with v accumulated in float32.
 
     :param q: (B, Nq, D); k: (B, Nk, D); v: (B, Nk, Dv).
+    :param bias: optional (B, Nq, Nk) additive scores (GMA's relative
+        positions); ``position_only`` takes the bias alone as the scores.
     :return: (B, Nq, Dv) in v's type.
     """
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
-    p = torch.softmax(s, dim=-1).to(v.dtype)
+    p = torch.softmax(_scores(q, k, scale, bias, position_only), dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(v.dtype)
 
 
@@ -412,20 +485,27 @@ def flash_attend(
     """K5: softmax(scale * q k^T) v, online, the scores never stored.
 
     On a CPU tensor this is :func:`flash_attend_plain`; on a CUDA tensor
-    it launches the CUDA kernel (q, k and v all bf16 or all float32, D
-    and Dv multiples of 16 up to 128, float32 accumulation) and counts
-    one launch, or raises. The kernel has no backward, as the JAX
-    package's has no VJP: under grad mode a CUDA input that requires
-    grad raises.
+    it launches the CUDA kernel through ``atdn::flash_attend`` (q, k and
+    v all bf16 or all float32, D and Dv multiples of 16 up to 128,
+    float32 accumulation) and counts one launch, or raises. The kernel
+    has no backward, as the JAX package's has no VJP: under grad mode a
+    CUDA input that requires grad raises.
 
     :param q: (B, Nq, D); k: (B, Nk, D); v: (B, Nk, Dv).
     :return: (B, Nq, Dv) in v's type.
     """
     if q.device.type == "cpu":
         return flash_attend_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attend: no kernel for {q.device}")
+    _kernels.require_cuda("flash_attend", q)
     _kernels.refuse_autograd("flash_attend (K5)", q, k, v)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return torch.ops.atdn.flash_attend(q, k, v, scale)
+
+
+flash_attend.launches = 0
+
+
+def _flash_attend_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     b, nq, d = q.shape
     nk, dv = v.shape[1], v.shape[2]
     if k.shape != (b, nk, d) or v.shape[0] != b:
@@ -441,7 +521,6 @@ def flash_attend(
             raise ValueError(f"{name} {width} must be a multiple of 16 in [16, 128]")
     if nq < 1 or nk < 1:
         raise ValueError(f"flash_attend needs at least one query and one key, got {nq}, {nk}")
-    scale = d**-0.5 if scale is None else scale
     q, k, v = _kernels.aligned(q), _kernels.aligned(k), _kernels.aligned(v)
     out = torch.empty((b, nq, dv), dtype=v.dtype, device=q.device)
     status = _kernels.library("flash_attend").atdn_flash_attend(
@@ -454,7 +533,14 @@ def flash_attend(
     return out
 
 
-flash_attend.launches = 0
+def _flash_attend_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    return v.new_empty((q.shape[0], q.shape[1], v.shape[2]))
+
+
+_kernels.define_op(
+    "flash_attend", "(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+    flash_attend_plain, _flash_attend_fake, _flash_attend_cuda,
+)
 
 
 def attend(
@@ -463,6 +549,8 @@ def attend(
     v: torch.Tensor,
     scale: float | None = None,
     use_pallas: bool | None = None,
+    bias: torch.Tensor | None = None,
+    position_only: bool = False,
 ) -> torch.Tensor:
     """softmax(scale * q k^T) v, the JAX package's ``attend`` dispatch.
 
@@ -470,7 +558,12 @@ def attend(
     ``_FLASH_MIN_TOKENS`` query tokens or more and
     :func:`attend_reference` below; ``True`` always takes K5 and
     ``False`` never does. On CPU tensors the K5 wrapper is its plain
-    version, so the CPU follows the same token-count schedule."""
+    version, so the CPU follows the same token-count schedule. A
+    positional ``bias`` or ``position_only`` always takes
+    :func:`attend_reference` (K5 carries no bias, as in the JAX
+    package)."""
+    if bias is not None or position_only:
+        return attend_reference(q, k, v, scale, bias, position_only)
     if use_pallas is None:
         use_pallas = q.shape[-2] >= _FLASH_MIN_TOKENS
     if use_pallas:

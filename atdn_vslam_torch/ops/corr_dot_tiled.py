@@ -9,7 +9,8 @@ f2 as a (B, Hl, Wl, C) map with any strides and writing (B, N, Hl, Wl).
 bf16 features go through the TMA + wgmma core that K3 uses; an f2 that
 is not contiguous channels-last (the NHWC view of an NCHW feature map)
 is first staged K-major into a scratch buffer that the wrapper
-allocates, because a tensor map needs 16-byte strides.
+allocates, because a tensor map needs 16-byte strides. K3t launches
+only through its custom op ``atdn::corr_dot_tiled``.
 """
 
 from __future__ import annotations
@@ -40,19 +41,25 @@ def corr_dot_tiled(
     """K3t: one level of the correlation volume as (B, N, Hl, Wl).
 
     On CPU tensors this is :func:`corr_dot_tiled_plain`; on CUDA tensors
-    it launches the CUDA kernel (f1 and f2 both bf16 or both float32, C a
-    multiple of 8, f2 with any strides; bf16 or float32 out) and counts
-    one launch, or raises. A bf16 f2 that is not contiguous with a
-    16-byte aligned start is staged into a (B, Hl*Wl, C) scratch buffer
-    by the kernel's own transposing pass first (one launch all the same).
-    The kernel has no backward: under grad mode a CUDA input that
-    requires grad raises.
+    it launches the CUDA kernel through ``atdn::corr_dot_tiled`` (f1 and
+    f2 both bf16 or both float32, C a multiple of 8, f2 with any
+    strides; bf16 or float32 out) and counts one launch, or raises. A
+    bf16 f2 that is not contiguous with a 16-byte aligned start is
+    staged into a (B, Hl*Wl, C) scratch buffer by the kernel's own
+    transposing pass first (one launch all the same). The kernel has no
+    backward: under grad mode a CUDA input that requires grad raises.
     """
     if f1.device.type == "cpu":
         return corr_dot_tiled_plain(f1, f2, inv_sqrt_c, out_dtype)
-    if f1.device.type != "cuda":
-        raise RuntimeError(f"corr_dot_tiled: no kernel for {f1.device}")
+    _kernels.require_cuda("corr_dot_tiled", f1)
     _kernels.refuse_autograd("corr_dot_tiled (K3t)", f1, f2)
+    return torch.ops.atdn.corr_dot_tiled(f1, f2, inv_sqrt_c, out_dtype)
+
+
+corr_dot_tiled.launches = 0
+
+
+def _corr_dot_tiled_cuda(f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, out_dtype: torch.dtype) -> torch.Tensor:
     if f1.ndim != 3 or f2.ndim != 4:
         raise ValueError(f"f1 {tuple(f1.shape)} must be (B, N, C), f2 {tuple(f2.shape)} (B, Hl, Wl, C)")
     b, n, c = f1.shape
@@ -81,7 +88,14 @@ def corr_dot_tiled(
     return out
 
 
-corr_dot_tiled.launches = 0
+def _corr_dot_tiled_fake(f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, out_dtype: torch.dtype) -> torch.Tensor:
+    return f1.new_empty((f1.shape[0], f1.shape[1], f2.shape[1], f2.shape[2]), dtype=out_dtype)
+
+
+_kernels.define_op(
+    "corr_dot_tiled", "(Tensor f1, Tensor f2, float inv_sqrt_c, ScalarType out_dtype) -> Tensor",
+    corr_dot_tiled_plain, _corr_dot_tiled_fake, _corr_dot_tiled_cuda,
+)
 
 
 def build_pyramid_tiled(

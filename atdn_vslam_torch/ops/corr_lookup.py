@@ -15,6 +15,10 @@ L * (2r+1)^2) float32 with the window flattened dx-major per level, the
 reference CorrBlock's order, so a reference checkpoint's
 ``update_block.encoder.convc1`` loads without a permutation. The JAX
 package flattens dy-major.
+
+K2 and K3 launch only through their custom ops, ``atdn::corr_lookup``
+and ``atdn::corr_dot`` (``_kernels.define_op``), whose CUDA
+implementations count the launches.
 """
 
 from __future__ import annotations
@@ -37,13 +41,7 @@ def corr_dot_rowmajor_plain(
     return out.to(out_dtype)
 
 
-def _corr_dot_kernel(
-    f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, out_dtype: torch.dtype = torch.bfloat16
-) -> torch.Tensor:
-    if f1.device.type == "cpu":
-        return corr_dot_rowmajor_plain(f1, f2, inv_sqrt_c, out_dtype)
-    if f1.device.type != "cuda":
-        raise RuntimeError(f"corr_dot_rowmajor: no kernel for {f1.device}")
+def _corr_dot_cuda(f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, out_dtype: torch.dtype) -> torch.Tensor:
     b, n, c = f1.shape
     m = f2.shape[1]
     if f2.ndim != 3 or f2.shape[0] != b or f2.shape[2] != c or f2.device != f1.device:
@@ -65,6 +63,16 @@ def _corr_dot_kernel(
     _kernels.check(status, "corr_dot kernel")
     corr_dot_rowmajor.launches += 1
     return out
+
+
+def _corr_dot_fake(f1: torch.Tensor, f2: torch.Tensor, inv_sqrt_c: float, out_dtype: torch.dtype) -> torch.Tensor:
+    return f1.new_empty((f1.shape[0], f1.shape[1], f2.shape[1]), dtype=out_dtype)
+
+
+_kernels.define_op(
+    "corr_dot", "(Tensor f1, Tensor f2, float inv_sqrt_c, ScalarType out_dtype) -> Tensor",
+    corr_dot_rowmajor_plain, _corr_dot_fake, _corr_dot_cuda,
+)
 
 
 def corr_dot_backward(
@@ -90,7 +98,7 @@ class _CorrDot(torch.autograd.Function):
     def forward(ctx, f1, f2, inv_sqrt_c, out_dtype):
         ctx.save_for_backward(f1, f2)
         ctx.inv_sqrt_c = inv_sqrt_c
-        return _corr_dot_kernel(f1, f2, inv_sqrt_c, out_dtype)
+        return torch.ops.atdn.corr_dot(f1, f2, inv_sqrt_c, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -107,12 +115,13 @@ def corr_dot_rowmajor(
 
     On CPU tensors this is :func:`corr_dot_rowmajor_plain`, which
     autograd differentiates; on CUDA tensors it launches the CUDA kernel
-    (f1 and f2 both bf16 or both float32, C a multiple of 8; bf16 or
-    float32 out) and counts one launch, or raises. The CUDA forward goes
-    through :class:`_CorrDot`.
+    through ``atdn::corr_dot`` (f1 and f2 both bf16 or both float32, C a
+    multiple of 8; bf16 or float32 out) and counts one launch, or raises.
+    The CUDA forward goes through :class:`_CorrDot`.
     """
     if f1.device.type == "cpu":
         return corr_dot_rowmajor_plain(f1, f2, inv_sqrt_c, out_dtype)
+    _kernels.require_cuda("corr_dot_rowmajor", f1)
     return _CorrDot.apply(f1, f2, inv_sqrt_c, out_dtype)
 
 
@@ -220,13 +229,7 @@ def lookup_corr_pyramid_plain(
     return tokens.reshape(b, h1, w1, -1)
 
 
-def _lookup_kernel(
-    pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int = 4
-) -> torch.Tensor:
-    if coords.device.type == "cpu":
-        return lookup_corr_pyramid_plain(pyramid, coords, radius)
-    if coords.device.type != "cuda":
-        raise RuntimeError(f"lookup_corr_pyramid: no kernel for {coords.device}")
+def _lookup_cuda(pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
     b, h1, w1, _ = coords.shape
     n = h1 * w1
     levels = len(pyramid)
@@ -257,6 +260,16 @@ def _lookup_kernel(
     _kernels.check(status, "corr_lookup kernel")
     lookup_corr_pyramid.launches += 1
     return out
+
+
+def _lookup_fake(pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int) -> torch.Tensor:
+    return coords.new_empty((*coords.shape[:3], len(pyramid) * (2 * radius + 1) ** 2), dtype=torch.float32)
+
+
+_kernels.define_op(
+    "corr_lookup", "(Tensor[] pyramid, Tensor coords, int radius) -> Tensor",
+    lookup_corr_pyramid_plain, _lookup_fake, _lookup_cuda,
+)
 
 
 def _hat_weights(centers: torch.Tensor, radius: int, size: int) -> torch.Tensor:
@@ -320,7 +333,7 @@ class _LookupCorrPyramid(torch.autograd.Function):
         ctx.radius = radius
         ctx.shapes = [tuple(corr.shape[-2:]) for corr in pyramid]
         ctx.dtypes = [corr.dtype for corr in pyramid]
-        return _lookup_kernel(list(pyramid), coords, radius)
+        return torch.ops.atdn.corr_lookup(list(pyramid), coords, radius)
 
     @staticmethod
     def backward(ctx, d_window):
@@ -337,13 +350,15 @@ def lookup_corr_pyramid(
 
     On CPU tensors this is :func:`lookup_corr_pyramid_plain`, which
     autograd differentiates; on CUDA tensors it launches the CUDA kernel
-    once for all levels (bf16 or float32 volumes, radius 4, at most 4
-    levels) and counts one launch, or raises. The CUDA forward goes
+    through ``atdn::corr_lookup``, once for all levels (bf16 or float32
+    volumes, radius 4, at most 4 levels), and counts one launch, or
+    raises. The CUDA forward goes
     through :class:`_LookupCorrPyramid`; coordinates that require grad
     raise under grad mode (no coordinate gradient on the card).
     """
     if coords.device.type == "cpu":
         return lookup_corr_pyramid_plain(pyramid, coords, radius)
+    _kernels.require_cuda("lookup_corr_pyramid", coords)
     if torch.is_grad_enabled() and coords.requires_grad:
         raise RuntimeError(
             "lookup_corr_pyramid (K2) on the GPU gives no gradient in the coordinates; "

@@ -8,7 +8,8 @@ levels 1-3 are stored (B, Hl, Wl, N) and looked up by kernel K2n
 ``nlanes_lookup_level`` and follows its rounding: the hat weights and
 the row sums are rounded through the volume's type (bf16 on the GPU),
 where K2 lerps in float32. Windows are flattened dx-major per level,
-like K2's (the JAX package flattens dy-major).
+like K2's (the JAX package flattens dy-major). K2n launches only
+through its custom op ``atdn::corr_lookup_nlanes``.
 """
 
 from __future__ import annotations
@@ -93,30 +94,44 @@ def nlanes_lookup_level_plain(
     return torch.where(finite[..., None], out, torch.full_like(out, float("nan")))
 
 
+def nlanes_lookup_levels_plain(
+    vols: list[torch.Tensor], coords: torch.Tensor, first_level: int = 1, radius: int = 4
+) -> torch.Tensor:
+    """Plain PyTorch version of K2n over consecutive levels:
+    :func:`nlanes_lookup_level_plain` per level, concatenated."""
+    return torch.cat(
+        [nlanes_lookup_level_plain(v, coords, first_level + i, radius) for i, v in enumerate(vols)],
+        dim=-1,
+    )
+
+
 def nlanes_lookup_levels(
     vols: list[torch.Tensor], coords: torch.Tensor, first_level: int = 1, radius: int = 4
 ) -> torch.Tensor:
     """K2n: the window lookup over consecutive (B, Hl, Wl, N) levels,
     ``vols[i]`` being level ``first_level + i``.
 
-    On CPU tensors this is :func:`nlanes_lookup_level_plain` per level;
-    on CUDA tensors it launches the CUDA kernel once for all levels (bf16
-    or float32 volumes, radius 4, at most 4 levels) and counts one
-    launch, or raises. The kernel has no backward (the JAX flow net uses
-    it in test mode only): under grad mode a CUDA input that requires
-    grad raises.
+    On CPU tensors this is :func:`nlanes_lookup_levels_plain`; on CUDA
+    tensors it launches the CUDA kernel through
+    ``atdn::corr_lookup_nlanes``, once for all levels (bf16 or float32
+    volumes, radius 4, at most 4 levels), and counts one launch, or
+    raises. The kernel has no backward (the JAX flow net uses it in test
+    mode only): under grad mode a CUDA input that requires grad raises.
 
     :param coords: (B, N, 2) level-0 pixel coords (x, y).
     :return: (B, N, len(vols) * (2r+1)^2) float32, dx-major per level.
     """
     if coords.device.type == "cpu":
-        return torch.cat(
-            [nlanes_lookup_level_plain(v, coords, first_level + i, radius) for i, v in enumerate(vols)],
-            dim=-1,
-        )
-    if coords.device.type != "cuda":
-        raise RuntimeError(f"nlanes_lookup_levels: no kernel for {coords.device}")
+        return nlanes_lookup_levels_plain(vols, coords, first_level, radius)
+    _kernels.require_cuda("nlanes_lookup_levels", coords)
     _kernels.refuse_autograd("nlanes_lookup_levels (K2n)", coords, *vols)
+    return torch.ops.atdn.corr_lookup_nlanes(list(vols), coords, first_level, radius)
+
+
+nlanes_lookup_levels.launches = 0
+
+
+def _nlanes_cuda(vols: list[torch.Tensor], coords: torch.Tensor, first_level: int, radius: int) -> torch.Tensor:
     levels = len(vols)
     if not 1 <= levels <= 4 or radius != 4 or not 0 <= first_level <= 26:
         raise ValueError(
@@ -153,7 +168,14 @@ def nlanes_lookup_levels(
     return out
 
 
-nlanes_lookup_levels.launches = 0
+def _nlanes_fake(vols: list[torch.Tensor], coords: torch.Tensor, first_level: int, radius: int) -> torch.Tensor:
+    return coords.new_empty((*coords.shape[:2], len(vols) * (2 * radius + 1) ** 2), dtype=torch.float32)
+
+
+_kernels.define_op(
+    "corr_lookup_nlanes", "(Tensor[] vols, Tensor coords, int first_level, int radius) -> Tensor",
+    nlanes_lookup_levels_plain, _nlanes_fake, _nlanes_cuda,
+)
 
 
 def lookup_corr_pyramid_nlanes(

@@ -8,7 +8,8 @@ zero padding at every level), with the rows contracted before the
 columns in float32 and no rounding, all levels in one launch. Levels
 are the port's (B, N, Hl, Wl), here with Hl zero-padded by
 :func:`pad_pyramid_for_slab`; windows are flattened dx-major per level
-(the JAX package flattens dy-major).
+(the JAX package flattens dy-major). K2s launches only through its
+custom op ``atdn::corr_lookup_slab``.
 """
 
 from __future__ import annotations
@@ -119,19 +120,33 @@ def lookup_corr_pyramid_slab(
     (:func:`lookup_corr_pyramid_slab_plain` gives the contract).
 
     On CPU tensors this is the plain version; on CUDA tensors it
-    launches the CUDA kernel once for all levels (bf16 or float32
-    volumes, radius 4, at most 4 levels) and counts one launch, or
-    raises; the kernel has no backward, so under grad mode a CUDA input
-    that requires grad raises. ``q_blk`` is a TPU tiling parameter:
-    accepted and ignored.
+    launches the CUDA kernel through ``atdn::corr_lookup_slab``, once
+    for all levels (bf16 or float32 volumes, radius 4, at most 4
+    levels), and counts one launch, or raises; the kernel has no
+    backward, so under grad mode a CUDA input that requires grad raises.
+    ``q_blk`` is a TPU tiling parameter: accepted and ignored.
     """
     if coords.device.type == "cpu":
         return lookup_corr_pyramid_slab_plain(pyramid, coords, radius, q_blk, orig_rows)
-    if coords.device.type != "cuda":
-        raise RuntimeError(f"lookup_corr_pyramid_slab: no kernel for {coords.device}")
+    _kernels.require_cuda("lookup_corr_pyramid_slab", coords)
     _kernels.refuse_autograd("lookup_corr_pyramid_slab (K2s)", coords, *pyramid)
     if orig_rows is None:
         pyramid, orig_rows = pad_pyramid_for_slab(pyramid, radius)
+    return torch.ops.atdn.corr_lookup_slab(list(pyramid), coords, radius, list(orig_rows))
+
+
+lookup_corr_pyramid_slab.launches = 0
+
+
+def _slab_plain(pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int, orig_rows: list[int]) -> torch.Tensor:
+    return lookup_corr_pyramid_slab_plain(pyramid, coords, radius, orig_rows=tuple(orig_rows))
+
+
+def _slab_fake(pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int, orig_rows: list[int]) -> torch.Tensor:
+    return coords.new_empty((*coords.shape[:3], len(pyramid) * (2 * radius + 1) ** 2), dtype=torch.float32)
+
+
+def _slab_cuda(pyramid: list[torch.Tensor], coords: torch.Tensor, radius: int, orig_rows: list[int]) -> torch.Tensor:
     b, h1, w1, _ = coords.shape
     n = h1 * w1
     levels = len(pyramid)
@@ -171,4 +186,7 @@ def lookup_corr_pyramid_slab(
     return out
 
 
-lookup_corr_pyramid_slab.launches = 0
+_kernels.define_op(
+    "corr_lookup_slab", "(Tensor[] pyramid, Tensor coords, int radius, int[] orig_rows) -> Tensor",
+    _slab_plain, _slab_fake, _slab_cuda,
+)

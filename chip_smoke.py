@@ -82,7 +82,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
       step, peak memory, then 2 steps with ``remat=True`` (K2 24 times
       per step) and their peak memory; K1 and K2 against their plain
       versions at its batch-6 shapes;
-  17. the ``kernels`` line, the card, and last the ``ok`` line.
+  17. serving: the streaming step exported (``atdn_vslam_torch/serving.py``,
+      ``torch.export``; every kernel an ``atdn::`` custom op) at
+      376x1232, 12 iterations, bf16, with the encoder; a fresh process
+      that imports ``atdn_vslam_torch.serving`` alone loads both and
+      streams 17 frames (K1 once, K2 12 times per frame, counted there),
+      its flows and chained poses against the eager step; the artifact's
+      and the eager step's ms per frame, export and load seconds, the
+      artifact's bytes; then, float32 at 96x192, the ``use_pallas=True``
+      (K3 4, K5 12 per frame) and ``corr_nlanes=True`` (K1 1, K2 12, K2n
+      12) artifacts against eager, the default artifact moved to the CPU
+      (``move_to_device_pass``) against the CPU eager step, and the
+      weights as arguments with a second seed's weights;
+  18. positional: GMA's ``position_and_content`` and ``position_only``
+      in float32 at 96x192 on the card against the CPU, then
+      ``position_and_content`` at 376x1232, bf16, 12 iterations, 6 pairs
+      with the frame cache: ms per pair, peak memory, K1 0 and K2 12 per
+      pair, bf16 against float32 flows;
+  19. the ``kernels`` line (each kernel with its op, ``atdn::<name>``),
+      the card, and last the ``ok`` line.
 
 After phase 10, k1_backward, k2_backward and k3_backward: each backward
 pass through its autograd.Function at the KITTI shape, float32 against
@@ -90,7 +108,7 @@ autograd through the plain version on the card, then its bf16 ms
 against the bound of its bytes and products (``backward_*`` in the
 kernels line).
 
-The lines of phases 12-16 carry their own ``seconds``.
+The lines of phases 12-18 carry their own ``seconds``.
 
 The kernel lines of phase 3 also cover K2n (the three small KITTI
 levels), K4 (K1's KITTI output), K2s (the row-padded KITTI pyramid) and
@@ -115,6 +133,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -1270,7 +1289,7 @@ def entry_points(device, hw=FULL_HW, iters=12, pairs=3) -> dict:
             f1, f2 = (model.fnet(x).permute(0, 2, 3, 1) for x in (x1, x2))  # NHWC views
             ctx = model.cnet(x1)
             inp = torch.relu(ctx[:, model.hidden_dim:])
-            q, k = model.att(inp)
+            q, k, _ = model.att(inp)
             b, _, h8, w8 = inp.shape
             v = model.update_block.aggregator.to_v(inp).reshape(b, -1, h8 * w8).transpose(1, 2)
             probs = attention_probs_spatial(q, k, h8, w8, scale=1.0)
@@ -2180,6 +2199,395 @@ def flow_train(device, steps=5, remat_steps=2, seed=23, profile: int = 0, cfg_ov
     return out
 
 
+# the artifact against the eager step, each in a fresh process: the same
+# graph and kernels; the flows within 1e-3 of the largest flow, the chained
+# poses within 1e-4. This process is no reference: its earlier phases ran
+# the same convolution shapes with cudnn.benchmark on, and cuDNN keeps the
+# plans it timed then (another algorithm, other bf16 roundings)
+SERVE_FLOW_REL = 1e-3
+SERVE_POSE_ATOL = 1e-4
+
+# a serving process: loads the two artifacts through atdn_vslam_torch.serving
+# alone, streams the frames with the carries chained, and reports
+_SERVE_SCRIPT = r"""
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from atdn_vslam_torch import serving
+from atdn_vslam_torch.ops.attention import attention_probs_spatial
+from atdn_vslam_torch.ops.corr_lookup import lookup_corr_pyramid
+work, device = sys.argv[2], torch.device(sys.argv[3])
+sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+t0 = time.perf_counter()
+step = serving.load_exported(work + "/step.pt2")
+encoder = serving.load_exported(work + "/encoder.pt2")
+load_s = time.perf_counter() - t0
+frames = [torch.from_numpy(f).to(device).float() for f in np.load(work + "/frames.npy")]
+t0 = time.perf_counter()
+fmap = encoder.call(frames[0])
+carry = serving.zero_inputs_like(step.exported, 3)
+pose = torch.eye(4, device=device)
+poses, flows, times = [], [], []
+attention_probs_spatial.launches = lookup_corr_pyramid.launches = 0
+for im1, im2 in zip(frames[:-1], frames[1:]):
+    sync()
+    t1 = time.perf_counter()
+    pose, fmap, carry, flow = step.call(im1, im2, fmap, carry, pose)
+    sync()
+    times.append((time.perf_counter() - t1) * 1e3)
+    if not poses:
+        first_pose_s = time.perf_counter() - t0 + load_s
+    poses.append(pose.cpu())
+    flows.append(flow.cpu())
+torch.save({"poses": torch.stack(poses), "flows": torch.stack(flows)}, work + "/served.pt")
+print(json.dumps({
+    "models_imported": any(m.startswith("atdn_vslam_torch.models") for m in sys.modules),
+    "launches": {"attention_probs": attention_probs_spatial.launches, "corr_lookup": lookup_corr_pyramid.launches},
+    "load_s": load_s, "load_to_first_pose_s": first_pose_s, "frame_ms": times,
+}))
+"""
+
+
+def _stream_eager(step, encode, frames, device):
+    """Frames through an eager or loaded step with the carries chained:
+    poses, flows and per-frame ms (host clock around each synchronised
+    call)."""
+    fmap = encode(frames[0])
+    carry = tuple((torch.zeros((1, 512), device=device),) * 2 for _ in range(2))
+    pose = torch.eye(4, device=device)
+    poses, flows, times = [], [], []
+    for im1, im2 in zip(frames[:-1], frames[1:]):
+        _sync(device)
+        t0 = time.perf_counter()
+        pose, fmap, carry, flow = step(im1, im2, fmap, carry, pose)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        poses.append(pose.cpu())
+        flows.append(flow.float().cpu())
+    return torch.stack(poses), torch.stack(flows), times
+
+
+def serve_eager_worker(work: str, device: str, height: int, width: int, iters: int) -> None:
+    """The eager step of the ``serving`` phase in a fresh process: the
+    slice's bf16 build from the state dicts the phase saved, the frames
+    streamed with the carries chained; writes ``eager.pt`` and prints
+    the frame times."""
+    from atdn_vslam_torch import serving
+    from atdn_vslam_torch.models.factory import build_flow_model, build_odometry_model
+
+    dev = torch.device(device)
+    cfg = flow_config(os.devnull, (int(height), int(width)), int(iters), bf16=True)
+    flow_sd, odo_sd = torch.load(os.path.join(work, "weights.pt"))
+    flow = build_flow_model(cfg, dev)
+    flow.load_state_dict(flow_sd)
+    odo = build_odometry_model(cfg, dev)
+    odo.load_state_dict(odo_sd)
+    ims = [torch.from_numpy(f).to(dev).float() for f in np.load(os.path.join(work, "frames.npy"))]
+    with torch.no_grad():
+        poses, flows, times = _stream_eager(serving.make_stream_step(flow, odo, (None, None)),
+                                            lambda im: serving.encode_frame(flow, None, im), ims, dev)
+    torch.save({"poses": poses, "flows": flows}, os.path.join(work, "eager.pt"))
+    print(json.dumps({"frame_ms": times}))
+
+
+def _run_worker(args: list[str], what: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", *args], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"serving: the {what} process failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _served_build(device, work: str, name: str, hw, iters: int, switch: dict, frames: int, seed: int = 3):
+    """A float32 build of the flow net at ``hw`` exported with the
+    odometry net, loaded back and streamed over ``frames`` frames, its
+    launches per frame and its largest flow and pose difference from the
+    eager step on the same weights and frames."""
+    from atdn_vslam_torch import serving
+    from atdn_vslam_torch.models.factory import build_flow_model, build_odometry_model
+
+    cfg = flow_config(os.devnull, hw, iters, bf16=False)
+    flow_sd, odo_sd = seeded_weights(cfg, seed=seed)
+    flow = build_flow_model(cfg, device, **switch)
+    flow.load_state_dict(flow_sd)
+    odo = build_odometry_model(cfg, device)
+    odo.load_state_dict(odo_sd)
+    path = os.path.join(work, f"{name}.pt2")
+    serving.save_stream_step(serving.export_stream_step(flow, odo, None, None, *hw), path)
+    step = serving.load_exported(path)
+    ims = [torch.from_numpy(f).to(device).float() for f in synthetic_frames(frames, hw, seed=4)]
+    with torch.no_grad():
+        eager = _stream_eager(serving.make_stream_step(flow, odo, (None, None)),
+                              lambda im: serving.encode_frame(flow, None, im), ims, device)
+        reset_launches()
+        got = _stream_eager(step.call, lambda im: serving.encode_frame(flow, None, im), ims, device)
+        launches = read_launches()
+    pairs = frames - 1
+    return {
+        "launches_per_frame": {k: v / pairs for k, v in launches.items() if v},
+        "max_abs_flow_diff_px": float((got[1] - eager[1]).abs().max()),
+        "max_abs_pose_diff": float((got[0] - eager[0]).abs().max()),
+        "finite": bool(got[1].isfinite().all()),
+    }, (flow, odo, cfg, ims)
+
+
+def serving_phase(device, work: str, hw=FULL_HW, iters=12, frames=17, small_hw=(96, 192),
+                  small_iters=12, profile: int = 0) -> dict:
+    """The serving export (``atdn_vslam_torch/serving.py``): the slice's
+    bf16 step at ``hw`` (seeded weights, gamma 0.5) and the encoder
+    exported on the card, saved, then loaded by a fresh ``python3``
+    process that imports ``atdn_vslam_torch.serving`` alone and streams
+    ``frames`` frames with the carries chained through
+    ``zero_inputs_like``; its flows and chained poses against the eager
+    ``make_stream_step`` on the same weights and frames in another fresh
+    process (``SERVE_FLOW_REL``, ``SERVE_POSE_ATOL``; the eager step in
+    this process is reported beside it), its launches (K1 once, K2
+    ``iters`` times per frame), and both processes' ms per frame; then
+    the artifact and the eager step in turns in this process (the same
+    cuDNN plans), and the artifact's graph by operator (``profile`` more
+    pairs of each under ``torch.profiler``). Then, float32 at ``small_hw``: the ``use_pallas=True`` and
+    ``corr_nlanes=True`` builds (their launches per frame, outputs
+    against eager), and the default build moved to the CPU with
+    ``move_to_device_pass`` against the CPU eager step, and exported with
+    the weights as arguments and called with a second seed's weights
+    against eager on those (the ``agreement`` bounds)."""
+    from torch.export.passes import move_to_device_pass
+
+    from atdn_vslam_torch import serving
+    from atdn_vslam_torch.models.factory import build_flow_model, build_odometry_model
+
+    t_start = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    cfg = flow_config(os.devnull, hw, iters, bf16=True)
+    flow_sd, odo_sd = seeded_weights(cfg, seed=0)
+    flow = build_flow_model(cfg, device)
+    flow.load_state_dict(flow_sd)
+    odo = build_odometry_model(cfg, device)
+    odo.load_state_dict(odo_sd)
+    t0 = time.perf_counter()
+    serving.save_stream_step(serving.export_stream_step(flow, odo, None, None, *hw), os.path.join(work, "step.pt2"))
+    serving.save_stream_step(serving.export_encoder(flow, None, *hw), os.path.join(work, "encoder.pt2"))
+    export_s = time.perf_counter() - t0
+    clip = synthetic_frames(frames, hw, seed=1)
+    np.save(os.path.join(work, "frames.npy"), np.stack(clip))
+    torch.save((flow_sd, odo_sd), os.path.join(work, "weights.pt"))
+    ims = [torch.from_numpy(f).to(device).float() for f in clip]
+    with torch.no_grad():
+        parent = _stream_eager(serving.make_stream_step(flow, odo, (None, None)),
+                               lambda im: serving.encode_frame(flow, None, im), ims, device)
+    served_info = _run_worker([_SERVE_SCRIPT, REPO, work, str(device)], "serving")
+    eager_info = _run_worker([
+        f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+        f"chip_smoke.serve_eager_worker({work!r}, {str(device)!r}, {hw[0]}, {hw[1]}, {iters})"
+    ], "eager")
+    served = torch.load(os.path.join(work, "served.pt"))
+    eager = torch.load(os.path.join(work, "eager.pt"))
+    poses, flows, eager_ms = eager["poses"], eager["flows"], eager_info["frame_ms"]
+    pairs = frames - 1
+    if served_info["models_imported"]:
+        raise AssertionError("serving: the serving process imported atdn_vslam_torch.models")
+    want = {"attention_probs": pairs, "corr_lookup": iters * pairs}
+    if device.type == "cuda" and served_info["launches"] != want:
+        raise AssertionError(f"serving: the artifact launched {served_info['launches']}, not {want}")
+    flow_diff = float((served["flows"] - flows).abs().max())
+    flow_scale = float(flows.abs().max())
+    pose_diff = float((served["poses"] - poses).abs().max())
+    if (not bool(served["flows"].isfinite().all()) or flow_diff > SERVE_FLOW_REL * flow_scale
+            or pose_diff > SERVE_POSE_ATOL):
+        raise AssertionError(f"serving: artifact against eager: flows {flow_diff} px (of {flow_scale}), "
+                             f"poses {pose_diff}")
+    steady = slice(3, None)  # the first frames include cuDNN's and the allocator's warm-up
+    loaded = serving.load_exported(os.path.join(work, "step.pt2"))
+    eager_step = serving.make_stream_step(flow, odo, (None, None))
+    turns = {"artifact": [], "eager": []}
+    with torch.no_grad():
+        for name in ("artifact", "eager", "eager", "artifact"):
+            fn = loaded.call if name == "artifact" else eager_step
+            turns[name] += _stream_eager(fn, lambda im: serving.encode_frame(flow, None, im), ims, device)[2][3:]
+    calls = Counter(  # the graph and the subgraphs of its higher-order ops (autocast regions)
+        str(n.target) for gm in loaded.exported.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
+        for n in gm.graph.nodes if n.op == "call_function"
+    )
+    out = {
+        "hw": list(hw), "iters": iters, "frames": frames, "dtype": "bfloat16",
+        "export_s": export_s, "step_bytes": os.path.getsize(os.path.join(work, "step.pt2")),
+        "encoder_bytes": os.path.getsize(os.path.join(work, "encoder.pt2")),
+        "load_s": served_info["load_s"], "load_to_first_pose_s": served_info["load_to_first_pose_s"],
+        "models_imported": served_info["models_imported"], "launches": served_info["launches"],
+        "max_abs_flow_diff_px": flow_diff, "max_abs_flow_px": flow_scale, "max_abs_pose_diff": pose_diff,
+        "tol": {"flow_rel": SERVE_FLOW_REL, "pose_atol": SERVE_POSE_ATOL},
+        "max_abs_flow_diff_px_this_process": float((served["flows"] - parent[1]).abs().max()),
+        "max_abs_pose_diff_this_process": float((served["poses"] - parent[0]).abs().max()),
+        "ms_per_frame_median_this_process": float(np.median(parent[2][3:])),
+        "ms_per_frame_median": float(np.median(served_info["frame_ms"][steady])),
+        "ms_per_frame_median_eager": float(np.median(eager_ms[steady])),
+        "frame_ms": served_info["frame_ms"], "frame_ms_eager": eager_ms,
+        "this_process_turns_median_ms": {k: float(np.median(v)) for k, v in turns.items()},
+        "graph_calls": sum(calls.values()), "graph_calls_top": calls.most_common(10),
+    }
+    if profile:
+        with torch.no_grad():
+            fmap = serving.encode_frame(flow, None, ims[0])
+            carry = serving.zero_inputs_like(loaded.exported, 3)
+            pose = torch.eye(4, device=device)
+            for name, fn in (("artifact", loaded.call), ("eager", eager_step)):
+                out[f"profile_{name}"] = profile_frames(
+                    lambda i, fn=fn: fn(ims[i], ims[i + 1], fmap, carry, pose), range(profile)
+                )
+
+    # the kernels of the other builds, float32 at small_hw
+    builds = {
+        "use_pallas_true": ({"use_pallas": True}, {"corr_dot": 4, "flash_attend": small_iters,
+                                                   "corr_lookup": small_iters}),
+        "corr_nlanes": ({"corr_nlanes": True}, {"attention_probs": 1, "corr_lookup": small_iters,
+                                                "corr_lookup_nlanes": small_iters}),
+    }
+    for name, (switch, per_frame) in builds.items():
+        res, _ = _served_build(device, work, name, small_hw, small_iters, switch, frames=4)
+        if (device.type == "cuda" and res["launches_per_frame"] != per_frame) or not res["finite"]:
+            raise AssertionError(f"serving: {name} launched {res['launches_per_frame']} per frame, not {per_frame}")
+        if res["max_abs_flow_diff_px"] > FLOW_F32_TOL or res["max_abs_pose_diff"] > 1e-4:
+            raise AssertionError(f"serving: {name} artifact against eager: {res}")
+        out[name] = res
+    res, (flow32, odo32, cfg32, small) = _served_build(device, work, "default_f32", small_hw, 2, {}, frames=3)
+    if res["max_abs_flow_diff_px"] > FLOW_F32_TOL or res["max_abs_pose_diff"] > 1e-4:
+        raise AssertionError(f"serving: default float32 artifact against eager: {res}")
+    out["default_f32"] = res
+
+    # the card's artifact on the CPU: each atdn:: op takes its plain version
+    cpu = torch.device("cpu")
+    moved = serving.Loaded(move_to_device_pass(torch.export.load(os.path.join(work, "default_f32.pt2")), cpu))
+    flow_cpu = build_flow_model(cfg32, cpu)
+    flow_cpu.load_state_dict(flow32.state_dict())
+    odo_cpu = build_odometry_model(cfg32, cpu)
+    odo_cpu.load_state_dict(odo32.state_dict())
+    ims_cpu = [im.cpu() for im in small]
+    with torch.no_grad():
+        want = _stream_eager(serving.make_stream_step(flow_cpu, odo_cpu, (None, None)),
+                             lambda im: serving.encode_frame(flow_cpu, None, im), ims_cpu, cpu)
+        got = _stream_eager(moved.call, lambda im: serving.encode_frame(flow_cpu, None, im), ims_cpu, cpu)
+    moved_res = {"max_abs_flow_diff_px": float((got[1] - want[1]).abs().max()),
+                 "max_abs_pose_diff": float((got[0] - want[0]).abs().max())}
+    if moved_res["max_abs_flow_diff_px"] > FLOW_F32_TOL or moved_res["max_abs_pose_diff"] > 1e-4:
+        raise AssertionError(f"serving: the artifact moved to the CPU against the CPU eager step: {moved_res}")
+    out["moved_to_cpu"] = moved_res
+
+    # the weights as arguments, called with a second seed's weights
+    args_path = os.path.join(work, "step_args.pt2")
+    serving.save_stream_step(serving.export_stream_step(flow32, odo32, None, None, *small_hw, bake_weights=False),
+                             args_path)
+    step_args = serving.load_exported(args_path)
+    other = [{k: v.to(device) for k, v in sd.items()} for sd in seeded_weights(cfg32, seed=5)]
+    live = serving.make_stream_step(flow32, odo32)
+    with torch.no_grad():
+        want = _stream_eager(lambda *a: live(*other, *a), lambda im: serving.encode_frame(flow32, other[0], im),
+                             small, device)
+        got = _stream_eager(lambda *a: step_args.call(*other, *a),
+                            lambda im: serving.encode_frame(flow32, other[0], im), small, device)
+    args_res = {"max_abs_flow_diff_px": float((got[1] - want[1]).abs().max()),
+                "max_abs_pose_diff": float((got[0] - want[0]).abs().max())}
+    if args_res["max_abs_flow_diff_px"] > FLOW_F32_TOL or args_res["max_abs_pose_diff"] > 1e-4:
+        raise AssertionError(f"serving: the weights as arguments against eager on them: {args_res}")
+    out["weights_as_arguments"] = args_res
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def _positional_model(iters: int, dtype, mode: str | None, seed: int, device):
+    from atdn_vslam_torch.models.factory import cast_flow_model, init_params
+    from atdn_vslam_torch.models.flow.network import RAFTGMA
+
+    model = init_params(RAFTGMA(iters=iters, **({mode: True} if mode else {})), seed)
+    with torch.no_grad():
+        model.update_block.aggregator.gamma.fill_(0.5)
+    model.dtype = dtype
+    return cast_flow_model(model.to(device), dtype).eval()
+
+
+def positional(device, small_hw=(96, 192), small_iters=2, hw=FULL_HW, iters=12, pairs=6, seed=24,
+               profile: int = 0) -> dict:
+    """GMA's positional attention (``models/flow/gma.py`` RelPosEmb): in
+    float32 at ``small_hw``, ``position_and_content`` and
+    ``position_only`` on the card against the CPU (``FLOW_F32_TOL``, no
+    K1, K2 every iteration); then ``position_and_content`` at ``hw``,
+    bf16, ``iters`` iterations, seeded weights and positional tables,
+    ``pairs`` pairs streamed with the frame cache: ms per pair (host
+    clock around each synchronised pair, the first left out), peak
+    memory, finite flows, K1 0 and K2 ``iters`` launches per pair, and
+    the bf16 flows against the float32 build's (``FLOW_BF16_REL``); the
+    content-only build on the same seed is timed beside it (``profile``
+    more pairs of both bf16 builds under ``torch.profiler``)."""
+    t_start = time.perf_counter()
+    out = {}
+    cpu = torch.device("cpu")
+    clip = synthetic_frames(2, small_hw, seed=4)
+    for mode in ("position_and_content", "position_only"):
+        flows, launches = {}, None
+        for dev in (device, cpu):
+            model = _positional_model(small_iters, torch.float32, mode, seed, dev)
+            im1, im2 = (torch.from_numpy(f).to(dev).float()[None] for f in clip)
+            reset_launches()
+            with torch.inference_mode():
+                flows[dev.type] = [f.cpu() for f in model(im1, im2)]
+            if dev.type == "cuda":
+                launches = read_launches()
+        want = launches_of(corr_lookup=small_iters)
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"positional: {mode} launched {launches}, not {want}")
+        diff = max(float((a - b).abs().max()) for a, b in zip(flows[device.type], flows["cpu"]))
+        if not all(bool(f.isfinite().all()) for f in flows[device.type]) or diff > FLOW_F32_TOL:
+            raise AssertionError(f"positional: {mode} card against CPU {diff} > {FLOW_F32_TOL}")
+        out[mode] = {"hw": list(small_hw), "iters": small_iters, "max_abs_flow_diff_px": diff,
+                     "tol_px": FLOW_F32_TOL, "launches": launches}
+
+    ims = [torch.from_numpy(f).to(device).float()[None] for f in synthetic_frames(pairs + 1, hw, seed=1)]
+    runs, profiles = {}, {}
+    for dtype, mode in ((torch.bfloat16, "position_and_content"), (torch.float32, "position_and_content"),
+                        (torch.bfloat16, None)):
+        model = _positional_model(iters, dtype, mode, seed, device)
+        flows, times = [], []
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        with torch.inference_mode():
+            fmap = model(ims[0], encode_only=True)
+            reset_launches()
+            for i in range(pairs):
+                _sync(device)
+                t0 = time.perf_counter()
+                (low, _), fmap = model(ims[i], ims[i + 1], fmap1=fmap, return_features=True)
+                _sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+                flows.append(low.float().cpu())
+            key = (dtype, mode)
+            runs[key] = (flows, times, read_launches(),
+                         torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None)
+            if profile and dtype == torch.bfloat16:
+                profiles[mode or "content_only"] = profile_frames(
+                    lambda i: model(ims[i], ims[i + 1], fmap1=fmap, return_features=True), range(min(profile, pairs))
+                )
+        del model
+    flows, times, launches, peak = runs[(torch.bfloat16, "position_and_content")]
+    f32 = runs[(torch.float32, "position_and_content")]
+    want = launches_of(corr_lookup=iters * pairs)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"positional: the KITTI build launched {launches} for {pairs} pairs, not {want}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(flows, f32[0]))
+    scale = max(float(f.abs().max()) for f in f32[0])
+    if not all(bool(f.isfinite().all()) for f in flows) or diff > FLOW_BF16_REL * scale:
+        raise AssertionError(f"positional: bf16 flows differ from float32 by {diff} px > {FLOW_BF16_REL} x {scale}")
+    out.update({
+        "hw": list(hw), "iters": iters, "pairs": pairs, "dtype": "bfloat16", "launches": launches,
+        "ms_per_pair": float(np.mean(times[1:])), "ms_per_pair_median": float(np.median(times[1:])),
+        "pair_ms": times, "peak_mem_gib": peak,
+        "ms_per_pair_f32": float(np.mean(f32[1][1:])), "peak_mem_gib_f32": f32[3],
+        "ms_per_pair_content_only": float(np.mean(runs[(torch.bfloat16, None)][1][1:])),
+        "peak_mem_gib_content_only": runs[(torch.bfloat16, None)][3],
+        "bf16_vs_f32_max_abs_flow_low_diff_px": diff, "max_abs_flow_low_px_f32": scale, "rel_tol": FLOW_BF16_REL,
+        "seconds": time.perf_counter() - t_start, **({"profile": profiles} if profile else {}),
+    })
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None, help="also write every phase's result to this JSON file")
@@ -2187,7 +2595,9 @@ def main(argv=None) -> int:
                    help="after each slice and each build of the nlanes phase, profile N more "
                         "streaming steps with torch.profiler; in the mapping phase N train "
                         "steps and N warm queries; N solves of each pose-graph case, N "
-                        "odometry train steps and N flow train steps")
+                        "odometry train steps and N flow train steps; N steps of the serving "
+                        "artifact and of the eager step, N pairs of the positional and the "
+                        "content-only build")
     args = p.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2271,6 +2681,11 @@ def main(argv=None) -> int:
     emit("flow_train_agreement", card=card, **results["flow_train_agreement"])
     results["flow_train"] = flow_train(device, profile=args.profile)
     emit("flow_train", card=card, **results["flow_train"])
+    torch.cuda.empty_cache()
+    results["serving"] = serving_phase(device, os.path.join(work, "serving"), profile=args.profile)
+    emit("serving", card=card, **results["serving"])
+    results["positional"] = positional(device, profile=args.profile)
+    emit("positional", card=card, **results["positional"])
     kernels[0]["pass_ms"] = k1_pass_ms(device)
 
     # each kernel's launches from the run of the path that drives it
@@ -2284,6 +2699,22 @@ def main(argv=None) -> int:
         if k["name"] in ("attention_probs", "corr_lookup"):  # the other paths that drive them
             k["launches_loop_closure"] = results["loop_closure"]["launches"][k["name"]]
             k["launches_flow_train"] = results["flow_train"]["launches"][k["name"]]
+    # the serving path's launches: K1 and K2 from the KITTI artifact's
+    # process, K3, K5 and K2n from the float32 builds' artifacts; K2 from
+    # the positional KITTI build
+    serve = results["serving"]
+    serve_launches = {
+        **serve["launches"],
+        "corr_dot": serve["use_pallas_true"]["launches_per_frame"]["corr_dot"],
+        "flash_attend": serve["use_pallas_true"]["launches_per_frame"]["flash_attend"],
+        "corr_lookup_nlanes": serve["corr_nlanes"]["launches_per_frame"]["corr_lookup_nlanes"],
+    }
+    for k in kernels:
+        k["op"] = f"atdn::{k['name']}"
+        if k["name"] in serve_launches:
+            k["launches_serving"] = serve_launches[k["name"]]
+        if k["name"] == "corr_lookup":
+            k["launches_positional"] = results["positional"]["launches"]["corr_lookup"]
     backward = {"attention_probs": "k1_backward", "corr_lookup": "k2_backward", "corr_dot": "k3_backward"}
     for k in kernels:
         if k["name"] in backward:
@@ -2295,7 +2726,8 @@ def main(argv=None) -> int:
             json.dump(results, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extras = ("launches_loop_closure", "launches_flow_train", "backward_ms", "backward_bound_ms",
+    extras = ("op", "launches_loop_closure", "launches_flow_train", "launches_serving", "launches_positional",
+              "backward_ms", "backward_bound_ms",
               "backward_bound_by", "design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
               "max_abs_err_2x")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extras if key in k}

@@ -60,6 +60,41 @@ def test_source_has_no_jax_import(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
+NEW_MODULES = (
+    "atdn_vslam_torch.serving",
+    "atdn_vslam_torch.eval.kalman",
+    "atdn_vslam_torch.cli.kalman",
+    "atdn_vslam_torch.cli.visualize",
+    "atdn_vslam_torch.data.localization",
+    "atdn_vslam_torch.utils.profiling",
+    "atdn_vslam_torch.utils.depth",
+)
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_serving_and_utility_modules_are_covered(module):
+    """The serving export and the remaining utilities are modules of the
+    port, and so among those the two tests above import and parse."""
+    assert module in {name for name, _ in _port_modules()}
+
+
+def test_serving_imports_nothing_of_the_models():
+    """A serving process loads an artifact through
+    ``atdn_vslam_torch.serving``, which registers the kernels' ops and
+    imports no module of ``atdn_vslam_torch.models``."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import torch\n"
+        "import atdn_vslam_torch.serving\n"
+        "assert not [m for m in sys.modules if m.startswith('atdn_vslam_torch.models')]\n"
+        "assert hasattr(torch.ops.atdn, 'corr_lookup') and hasattr(torch.ops.atdn, 'corr_dot_tiled')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+
+
 def test_entry_points_default_to_the_gpu(monkeypatch, tmp_path):
     """Without a GPU, building the runtime (whose loop closure and
     pose-graph solve run on its device) or a model without ``device=``,

@@ -229,8 +229,10 @@ def test_raftgma_refuses_what_is_not_ported(gma, frames):
         port(im[:, :60], im[:, :60])
     from atdn_vslam_torch.models.flow.gma import AttentionQK
 
-    with pytest.raises(NotImplementedError, match="M4"):
-        AttentionQK(position_only=True)
+    # the positional modes are ported; like the JAX package they refuse
+    # to materialise their (N, N) bias above 8192 tokens
+    with pytest.raises(ValueError, match="8192"):
+        AttentionQK(position_only=True)(torch.zeros(1, 128, 64, 129))
 
 
 def test_atdnvo_two_steps_match_jax_with_carry():
