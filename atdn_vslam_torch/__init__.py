@@ -12,13 +12,17 @@ odometry mode) with RAFTGMA in test mode and ATDNVO; the keyframe map
 loop closure and the pose-graph solve; ATDNVO training, odometry
 evaluation and the SLAM demo; flow training; the serving export; GMA's
 positional modes; the Kalman and plotting CLIs and the remaining
-utilities; the reference checkpoint loader.
+utilities; the reference checkpoint loader; parallelism over processes
+(row-split flow inference, data-parallel training, the sharded map
+search and pose-graph solve).
 
   data/       KITTI poses, flow caches and windows, flow file formats
   eval/       trajectory metrics, KITTI trajectory files, plots
   geometry/   SE(3) pose math, the pose-graph solve
   models/     ATDNVO, the GMA flow network, MappingVAE, the factory
               that makes them from a config
+  parallel/   the multi-process bootstrap and collectives, the
+              ("data", "model") mesh of ranks, row-split flow inference
   ops/        attention (kernels K1, K4, K5), correlation pyramid and
               window lookups (K2, K3, K2n, K2s, K3t), bilinear sampling,
               convex upsampling, padding, the kernel build and the

@@ -6,7 +6,9 @@ sequences, forward and/or backward, with the LSTM carry threaded over
 the whole sequence; chains the relative poses on the host in float64;
 writes KITTI trajectory text, optionally plots (matplotlib), and reports
 the ATE when ground truth is present. One process evaluates every
-sequence it is given.
+sequence it is given; in a multi-process run (the ``ATDN_*`` variables,
+``parallel/distributed.py``) each process evaluates its round-robin
+share of them (``host_shard``).
 
 Usage:
   python -m atdn_vslam_torch.cli.evaluate_odometry --data-path data \\
@@ -31,6 +33,7 @@ from atdn_vslam_torch.eval import ape_statistics, save_kitti_trajectory
 from atdn_vslam_torch.geometry.se3 import accumulate_poses_host
 from atdn_vslam_torch.models.factory import build_odometry_model
 from atdn_vslam_torch.models.odometry import ATDNVO
+from atdn_vslam_torch.parallel import distributed
 from atdn_vslam_torch.training.odometry import read_checkpoint
 from atdn_vslam_torch.utils.helpers import log, resolve_device
 
@@ -107,6 +110,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
     device = resolve_device(args.device)  # before any work: no GPU, no run
+    distributed.initialize(device=device)
+    device = distributed.local_device(device)
 
     config = load_config(args.config)
     paths = {"data_path": args.data_path, "checkpoint_dir": args.checkpoint_dir}
@@ -118,7 +123,7 @@ def main(argv: list[str] | None = None) -> int:
     model = build_odometry_model(config, device, image_hw=sample.shape[1:3])
     model.load_state_dict(read_checkpoint(config, args.stage)["model"])
     os.makedirs(args.exp, exist_ok=True)
-    for sequence in args.sequence:
+    for sequence in distributed.host_shard(args.sequence):
         for forward, name in ((True, "forward"), (False, "backward")):
             if args.direction in (name, "both"):
                 evaluate_direction(model, config, sequence, forward, args.exp, args.plot)

@@ -6,8 +6,14 @@ rate, the global-norm clip and AdamW, EPE metrics.
 On the GPU (``--device cuda``, the default) the net trains with float32
 parameters and bf16 compute, through the kernels K1 and K2 and their
 backward passes; on the CPU (``--device cpu``) in float32 with their
-plain versions. One device; the JAX CLI's ``--no-mesh`` (its data-parallel
-mesh) has no counterpart.
+plain versions.
+
+Data parallel over processes, one per device, as ``train_odometry``:
+the ``ATDN_*`` variables start the process group (``--backend``, default
+``nccl`` on CUDA), each rank loads and trains on its slice of every
+batch (the loss over the whole batch's valid pixels, gradients summed,
+global batch statistics), and rank 0 writes checkpoints and the output;
+``--no-mesh`` trains each process alone.
 
 ``--checkpoint-dir`` saves the whole training state every
 ``--checkpoint-every`` steps (``step_NNNNNNNN``); rerun with the same
@@ -37,6 +43,7 @@ import torch
 from atdn_vslam_torch.checkpoint import load_reference_checkpoint
 from atdn_vslam_torch.config import Config, FlowNetConfig
 from atdn_vslam_torch.models.factory import build_flow_train_model
+from atdn_vslam_torch.parallel import distributed, make_mesh, shard_batch
 from atdn_vslam_torch.training import flow as train
 from atdn_vslam_torch.utils.helpers import log, resolve_device
 
@@ -82,11 +89,14 @@ def build_dataset(p: argparse.ArgumentParser, args: argparse.Namespace):
     return dataset, args.dataset
 
 
-def draw_batch(dataset, seed: int, step: int, batch_size: int) -> list[np.ndarray]:
+def draw_batch(dataset, seed: int, step: int, batch_size: int, mesh=None) -> list[np.ndarray]:
     """The batch of step ``step``: indices from ``default_rng((seed,
     step))``, a pure function of the two (the JAX CLI's draw);
-    (im1, im2, flow, valid) stacked."""
+    (im1, im2, flow, valid) stacked. With ``mesh`` this rank's slice of
+    the batch, the only samples it loads."""
     idx = np.random.default_rng((seed, step)).integers(0, len(dataset), batch_size)
+    if mesh is not None:
+        idx = shard_batch(mesh, idx)
     samples = [dataset[int(j)] for j in idx]
     return [np.stack([s[i] for s in samples]) for i in range(4)]
 
@@ -125,8 +135,15 @@ def main(argv=None) -> int:
                    help="recompute each update iteration in the backward pass: less memory, same values")
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help="collectives of a multi-process run (default: nccl on CUDA, gloo on the CPU)")
+    p.add_argument("--no-mesh", action="store_true", help="no data parallelism: each process trains alone")
     args = p.parse_args(argv)
     device = resolve_device(args.device)  # before any work: no GPU, no run
+    distributed.initialize(backend=args.backend, device=device)
+    device = distributed.local_device(device)
+    mesh = None if args.no_mesh else make_mesh()
+    main_rank = distributed.rank() == 0
 
     dataset, label = build_dataset(p, args)
     log(f"{label}: {len(dataset)} pairs")
@@ -143,19 +160,19 @@ def main(argv=None) -> int:
             log(f"Resumed from {latest} at step {state.step}")
 
     for i in range(state.step, args.steps):
-        batch = [torch.from_numpy(x).to(device) for x in draw_batch(dataset, args.seed, i, args.batch_size)]
-        _, metrics = train.train_step(state, *batch, gamma=args.gamma)
-        if i % args.log_every == 0:
+        batch = [torch.from_numpy(x).to(device) for x in draw_batch(dataset, args.seed, i, args.batch_size, mesh)]
+        _, metrics = train.train_step(state, *batch, gamma=args.gamma, mesh=mesh)
+        if i % args.log_every == 0 and main_rank:
             log(f"step {i}: loss {float(metrics['loss']):.4f} epe {float(metrics['epe']):.3f} "
                 f"1px {float(metrics['1px']):.3f}")
-        if args.checkpoint_dir and (i + 1) % args.checkpoint_every == 0:
+        if main_rank and args.checkpoint_dir and (i + 1) % args.checkpoint_every == 0:
             train.save_checkpoint(train.checkpoint_path(args.checkpoint_dir, i + 1), state)
             log(f"Checkpointed full train state at step {i + 1}")
 
-    out_dir = os.path.dirname(os.path.abspath(args.output))
-    os.makedirs(out_dir, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, args.output)
-    log("Saved", args.output)
+    if main_rank:
+        os.makedirs(os.path.dirname(os.path.abspath(args.output)), exist_ok=True)
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, args.output)
+        log("Saved", args.output)
     return 0
 
 

@@ -19,6 +19,12 @@ linear solvers:
 The solve runs in float32 with TF32 off for matmuls and convolutions
 (the JAX package traces it under ``default_matmul_precision("highest")``:
 reduced-precision products made its Cholesky fail).
+
+:func:`optimize_pose_graph_sharded` splits the edges over the ranks of a
+mesh's "data" axis: each rank takes the residuals and Jacobians of its
+edges, and the normal equations' sums over edges (J^T J and J^T r, or
+the CG matvec's and preconditioner's) are all-reduced; the poses and the
+solve stay the same on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from atdn_vslam_torch.geometry.se3 import homogeneous, se3_inverse
+from atdn_vslam_torch.parallel.distributed import all_reduce
 from atdn_vslam_torch.utils.helpers import full_float32
 
 _EPS = 1e-8
@@ -238,12 +245,13 @@ def dense_normal_matrix(n: int, edges_i, edges_j, ji, jj) -> torch.Tensor:
     return jtj
 
 
-def _dense_step(n, edges_i, edges_j, ji, jj, rhs, damping):
+def _dense_step(n, edges_i, edges_j, ji, jj, rhs, damping, group):
     # gauge: pose 0 fixed, its block row and column dropped. Marquardt
     # damping (lam * diag(A) + lam * I) keeps the smallest eigenvalue in
     # proportion to the matrix's scale, above its rounding noise
     m = (n - 1) * 6
-    A = dense_normal_matrix(n, edges_i, edges_j, ji, jj).reshape(n * 6, n * 6)[6:, 6:]
+    A, rhs = all_reduce([dense_normal_matrix(n, edges_i, edges_j, ji, jj), rhs], group)
+    A = A.reshape(n * 6, n * 6)[6:, 6:]
     eye = torch.eye(m, dtype=A.dtype, device=A.device)
     A = A + damping * torch.diag_embed(torch.diagonal(A)) + damping * eye
     L = torch.linalg.cholesky(A)
@@ -255,11 +263,12 @@ def _project(v: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(v[:1]), v[1:]])
 
 
-def _cg_step(n, edges_i, edges_j, ji, jj, rhs, damping, cg_iterations):
+def _cg_step(n, edges_i, edges_j, ji, jj, rhs, damping, cg_iterations, group):
     # per-pose diagonal blocks; the same Marquardt damping as the dense path
     diag = ji.new_zeros((n, 6, 6))
     diag.index_add_(0, edges_i, _block_outer(ji, ji))
     diag.index_add_(0, edges_j, _block_outer(jj, jj))
+    diag, rhs = all_reduce([diag, rhs], group)
     dvec = damping * (torch.diagonal(diag, dim1=-2, dim2=-1) + 1.0)
 
     def matvec(v):
@@ -268,6 +277,7 @@ def _cg_step(n, edges_i, edges_j, ji, jj, rhs, damping, cg_iterations):
         out = torch.zeros_like(v)
         out.index_add_(0, edges_i, torch.einsum("eab,ea->eb", ji, u))
         out.index_add_(0, edges_j, torch.einsum("eab,ea->eb", jj, u))
+        (out,) = all_reduce([out], group)
         return _project(out + dvec * v)
 
     # block Jacobi: the damped 6x6 diagonal blocks, pose 0's the identity
@@ -308,22 +318,70 @@ def optimize_pose_graph(
     """
     if solver not in ("dense", "cg"):
         raise ValueError(f"unknown solver {solver!r}")
-    n = poses.shape[0]
     edges_i = edges_i.to(device=poses.device, dtype=torch.long)
     edges_j = edges_j.to(device=poses.device, dtype=torch.long)
     w = torch.ones(edges_i.shape[0], dtype=poses.dtype, device=poses.device) if weights is None else weights
+    cur, sq = _solve(poses, edges_i, edges_j, measurements, w, iterations, damping, solver, cg_iterations, None)
+    return cur, sq / (edges_i.shape[0] * 6)
+
+
+def _solve(poses, edges_i, edges_j, measurements, w, iterations, damping, solver, cg_iterations, group):
+    """The Gauss-Newton loop over the given edges, their sums taken over
+    ``group``: (optimised poses, sum of the squared final residuals)."""
+    n = poses.shape[0]
     sqrt_w = torch.sqrt(w)[:, None]
     cur = poses
     with full_float32(), torch.no_grad():
         for _ in range(iterations):
             _r0, ji, jj, rhs = normal_equations(cur, edges_i, edges_j, measurements, sqrt_w)
             if solver == "dense":
-                delta = _dense_step(n, edges_i, edges_j, ji, jj, rhs, damping)
+                delta = _dense_step(n, edges_i, edges_j, ji, jj, rhs, damping, group)
             else:
-                delta = _cg_step(n, edges_i, edges_j, ji, jj, rhs, damping, cg_iterations)
+                delta = _cg_step(n, edges_i, edges_j, ji, jj, rhs, damping, cg_iterations, group)
             cur = cur @ se3_exp(torch.cat([delta.new_zeros((1, 6)), delta]))
-        final_r = edge_residuals(cur, edges_i, edges_j, measurements)
-    return cur, torch.mean(final_r**2)
+        (sq,) = all_reduce([torch.sum(edge_residuals(cur, edges_i, edges_j, measurements) ** 2)], group)
+    return cur, sq
+
+
+def optimize_pose_graph_sharded(
+    mesh,
+    poses: torch.Tensor,
+    edges_i: torch.Tensor,
+    edges_j: torch.Tensor,
+    measurements: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    iterations: int = 10,
+    damping: float = 1e-6,
+    solver: str = "dense",
+    cg_iterations: int = 100,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`optimize_pose_graph` with the edges split over the mesh's
+    "data" ranks (JAX ``optimize_pose_graph_sharded``). Every rank passes
+    the whole graph; an edge count the data size does not divide is
+    padded with weight-0 self-edges (0, 0, identity) as in the JAX
+    package, and each rank takes an equal range. Returns the same as
+    :func:`optimize_pose_graph`, the same on every rank; the final mean
+    squared residual counts the real edges only (the JAX package's also
+    counts the pads' zeros).
+    """
+    if solver not in ("dense", "cg"):
+        raise ValueError(f"unknown solver {solver!r}")
+    dev = poses.device
+    e = edges_i.shape[0]
+    per = -(-e // mesh.data)
+    pad = per * mesh.data - e
+    edges_i = torch.cat([edges_i.to(dev, torch.long), edges_i.new_zeros(pad).to(dev, torch.long)])
+    edges_j = torch.cat([edges_j.to(dev, torch.long), edges_j.new_zeros(pad).to(dev, torch.long)])
+    eye = torch.eye(4, dtype=measurements.dtype, device=dev).expand(pad, 4, 4)
+    measurements = torch.cat([measurements, eye])
+    w = torch.ones(e, dtype=poses.dtype, device=dev) if weights is None else weights
+    w = torch.cat([w, w.new_zeros(pad)])
+    own = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+    cur, sq = _solve(
+        poses, edges_i[own], edges_j[own], measurements[own], w[own], iterations, damping, solver,
+        cg_iterations, mesh.data_group,
+    )
+    return cur, sq / (e * 6)
 
 
 def odometry_edges(n: int, device: str | torch.device) -> tuple[torch.Tensor, torch.Tensor]:

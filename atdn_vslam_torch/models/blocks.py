@@ -11,13 +11,41 @@ follow the reference ``state_dict`` (``conv``/``bn``, ``skip_layer``,
 and activations run in it from float32 parameters, batch norm computes
 in float32 and its output is cast back. float32 (the default) computes
 exactly as a plain ``bn(mish(conv(x)))``.
+
+Inside :func:`global_batch`, batch norm in training mode takes its
+statistics over the whole batch of a data-parallel step, every rank's
+slice of it together, and dropout takes its rank's slice of a mask drawn
+for the whole batch: the step computes what one process would on the
+whole batch, as flax's batch norm and dropout do under GSPMD.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from atdn_vslam_torch.parallel.distributed import all_reduce_sum_grad, group_rank, group_size
+
+#: the data group whose ranks' batch slices make up the batch of a
+#: training forward (set by :func:`global_batch`)
+_batch_group = None
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Training forwards inside see the whole batch of ``group`` (a "data"
+    process group whose ranks each hold an equal slice, rank order;
+    None: the local batch is the batch): batch norm takes its statistics
+    over every slice, dropout its rank's part of one mask."""
+    global _batch_group
+    prev, _batch_group = _batch_group, group
+    try:
+        yield
+    finally:
+        _batch_group = prev
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -54,16 +82,42 @@ class BatchNorm2d(nn.BatchNorm2d):
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             return super().forward(x)
+        if _batch_group is not None:
+            return self._global_forward(x, _batch_group)
         # momentum 1 hands back this batch's mean and unbiased variance
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum * (n - 1) / n)
-            self.num_batches_tracked.add_(1)
+        self._track(mean, var, (n - 1) / n)
         return out
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Training statistics over the group's whole batch: the sums of
+        x, then of the squared deviations from the global mean, and the
+        element count, each summed over the ranks by an all-reduce whose
+        gradient flows back to every rank."""
+        dims = [0, *range(2, x.ndim)]
+        count = x.new_full((1,), x.numel() // x.shape[1])
+        sums = all_reduce_sum_grad(torch.cat([x.sum(dim=dims), count]), group)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        dev = x - mean.view(shape)
+        var = all_reduce_sum_grad((dev * dev).sum(dim=dims), group) / n
+        out = dev * torch.rsqrt(var + self.eps).view(shape)
+        if self.affine:
+            out = out * self.weight.view(shape) + self.bias.view(shape)
+        self._track(mean.detach(), var.detach(), 1.0)
+        return out
+
+    @torch.no_grad()
+    def _track(self, mean: torch.Tensor, var: torch.Tensor, to_biased: float) -> None:
+        """Move the running statistics towards ``mean`` and the biased
+        variance ``var * to_biased``."""
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum * to_biased)
+        self.num_batches_tracked.add_(1)
 
 
 class ConvBlock(nn.Module):
@@ -158,7 +212,10 @@ class Dropout(nn.Dropout):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0 or self.generator is None:
             return super().forward(x)
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device, dtype=x.dtype) >= self.p
+        n, r = group_size(_batch_group), group_rank(_batch_group)
+        shape = (x.shape[0] * n, *x.shape[1:])  # the whole batch's mask, this rank's rows
+        u = torch.rand(shape, generator=self.generator, device=x.device, dtype=x.dtype)
+        keep = u[r * x.shape[0] : (r + 1) * x.shape[0]] >= self.p
         return x * keep / (1.0 - self.p)
 
 

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from atdn_vslam_torch.ops import attention as _attention
-from atdn_vslam_torch.ops.attention import apply_attention_probs, attend
+from atdn_vslam_torch.ops.attention import apply_attention_probs, attend, sharded_flash_attend
 
 
 class RelPosEmb(nn.Module):
@@ -133,8 +133,40 @@ class Aggregate(nn.Module):
                 q, k, v, scale=1.0, use_pallas=self.use_pallas, bias=bias,
                 position_only=self.position_only,
             )
+        return self._residual(fmap, out)
+
+    def _residual(self, fmap: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """fmap + gamma * proj(out), out (b*heads, h, w, d) or (b*heads, h*w, d)."""
+        b, _, h, w = fmap.shape
         out = out.reshape(b, self.heads, h, w, self.dim_head).permute(0, 1, 4, 2, 3)
         out = out.reshape(b, self.heads * self.dim_head, h, w)
         if self.project is not None:
             out = self.project(out)
         return fmap + self.gamma.to(fmap.dtype) * out
+
+    def forward_rows(
+        self,
+        attn: torch.Tensor | tuple[torch.Tensor, torch.Tensor, None],
+        fmap: torch.Tensor,
+        band: tuple[int, int],
+        mesh,
+        axis: str,
+        flash: bool,
+    ) -> torch.Tensor:
+        """The aggregate of rows [lo, hi) of ``fmap`` (B, C, H, W), the
+        values from all of it: ``attn`` is the band's probabilities
+        (B*heads, hi - lo, W, N_pad), read by ``torch.matmul``, or the
+        triple (q of the band, k, None), attended through the row-split
+        K5 (``flash``) or :func:`attend_reference`."""
+        b, _, h, w = fmap.shape
+        lo, hi = band
+        v = self.to_v(fmap).reshape(b * self.heads, self.dim_head, h * w).transpose(1, 2)
+        if isinstance(attn, torch.Tensor):
+            out = apply_attention_probs(attn, v)
+        elif flash:
+            out = sharded_flash_attend(
+                attn[0], attn[1], v, scale=1.0, mesh=mesh, axis=axis, n_rows=h, row_len=w
+            )
+        else:
+            out = attend(attn[0], attn[1], v, scale=1.0, use_pallas=False)
+        return self._residual(fmap[:, :, lo:hi], out)

@@ -22,6 +22,19 @@ on (2x KITTI, 752x2464, has 28952). The positional modes
 bias to the scores, on the same schedule but without K1 or K5
 (``models/flow/gma.py``), and are refused above 8192 tokens.
 
+Row-split test mode (``mesh=``, ``parallel/flow_sharding.py``; the JAX
+``spatial_mesh``): the ranks of the mesh axis split the H/8 rows into
+bands (``parallel.distributed.band_bounds``). Every rank runs both
+encoders on the whole frames (no N x N tensor there), then builds only
+its band's share of the large tensors: the correlation pyramid of its
+band's rows (plus the 2 rows its motion encoder reads beyond them)
+against the whole second frame, and its band's K1 probabilities (or its
+queries for K5 in every iteration). Each iteration computes the band's
+motion features, gathers them from every band, the band's aggregate,
+gathers it, runs the GRU and the flow head on the band's window
+(``update.py``) and gathers the new hidden state and coordinates; the
+upsampling runs whole. Every rank returns the same flows.
+
 Train mode (``test_mode=False``, JAX ``network.py:372,417,433``): every
 iteration detaches ``coords1`` first (the reference's
 ``coords1.detach()``), computes its upsample mask and upsamples its
@@ -44,9 +57,9 @@ from torch.utils.checkpoint import checkpoint
 
 from atdn_vslam_torch.models.flow.extractor import BasicEncoder
 from atdn_vslam_torch.models.flow.gma import AttentionQK
-from atdn_vslam_torch.models.flow.update import GMAUpdateBlock
+from atdn_vslam_torch.models.flow.update import ROW_REACH, GMAUpdateBlock, row_window
 from atdn_vslam_torch.ops import attention as _attention
-from atdn_vslam_torch.ops.attention import attention_probs_spatial
+from atdn_vslam_torch.ops.attention import attention_probs_spatial, sharded_flash_probs_spatial
 from atdn_vslam_torch.ops.bilinear import coords_grid
 from atdn_vslam_torch.ops.corr_lookup import build_corr_pyramid, lookup_corr_pyramid
 from atdn_vslam_torch.ops.corr_lookup_nlanes import (
@@ -54,6 +67,7 @@ from atdn_vslam_torch.ops.corr_lookup_nlanes import (
     lookup_corr_pyramid_nlanes,
 )
 from atdn_vslam_torch.ops.upsample import convex_upsample
+from atdn_vslam_torch.parallel.distributed import band_bounds, gather_bands, group_rank, group_size
 from atdn_vslam_torch.utils.helpers import full_float32
 
 
@@ -135,6 +149,8 @@ class RAFTGMA(nn.Module):
         fmap2: torch.Tensor | None = None,
         return_features: bool = False,
         encode_only: bool = False,
+        mesh=None,
+        axis: str = "model",
     ):
         """Flow between an RGB frame pair.
 
@@ -149,6 +165,9 @@ class RAFTGMA(nn.Module):
             stack of every iteration's upsampled flow (batch norm follows
             the module's ``.train()`` / ``.eval()``; ``return_features``
             is ignored, as in the JAX package).
+        :param mesh: split the rows over the mesh's ``axis`` (test mode
+            on the two frames alone; see the module docstring). Its group
+            of one process runs the same code through its collectives.
         :return: (low-res flow (B, H/8, W/8, 2), flow (B, H, W, 2)),
             plus image2's feature map with ``return_features``; with
             ``encode_only`` image1's feature map alone.
@@ -163,6 +182,10 @@ class RAFTGMA(nn.Module):
         # float32 parameters computing in a narrower type: flax's param_dtype/dtype split
         mixed = self.dtype != torch.float32 and self.fnet.conv1.weight.dtype == torch.float32
         with full_float32(), torch.autocast(image1.device.type, self.dtype, enabled=mixed):
+            if mesh is not None:
+                if not test_mode or flow_init is not None or fmap1 is not None or return_features or encode_only:
+                    raise ValueError("the row-split flow net takes two frames in test mode and nothing else")
+                return self._forward_rows(image1, image2, mesh, axis)
             return self._forward(
                 image1, image2, test_mode, flow_init, fmap1, fmap2, return_features, encode_only
             )
@@ -228,6 +251,49 @@ class RAFTGMA(nn.Module):
         if return_features:
             return (flow_low, flow_up), _nhwc(f2)
         return flow_low, flow_up
+
+    def _forward_rows(self, image1, image2, mesh, axis):
+        if self.corr_nlanes or self.position_only or self.att.pos_emb is not None:
+            raise ValueError("the row-split flow net runs content-only attention and the K2 lookup")
+        group = mesh.group(axis)
+        fmaps = self.fnet(torch.cat([self._prep(image1), self._prep(image2)]))
+        f1, f2 = fmaps.chunk(2)
+        cnet = self.cnet(self._prep(image1))
+        net, inp = torch.split(cnet, [self.hidden_dim, self.context_dim], dim=1)
+        net, inp = torch.tanh(net), F.relu(inp)
+        q, k, _ = self.att(inp)
+        b, _, h8, w8 = net.shape
+        lo, hi = band_bounds(h8, group_size(group), group_rank(group))
+        if hi <= lo:
+            raise ValueError(f"{h8} rows do not give each of {group_size(group)} ranks a band")
+        c_lo, c_hi = row_window(lo, hi, ROW_REACH["corr"], h8)
+        pyramid = build_corr_pyramid(
+            _nhwc(f1)[:, c_lo:c_hi], _nhwc(f2), self.corr_levels, dtype=self.dtype, use_pallas=self.use_pallas
+        )
+        q_band = q[:, lo * w8 : hi * w8]
+        flash = False
+        if self.use_pallas is not True and h8 * w8 <= _attention._MATERIALIZE_MAX_TOKENS:
+            attn = sharded_flash_probs_spatial(q_band, k, h8, w8, scale=1.0, mesh=mesh, axis=axis)
+        else:  # attend anew in every iteration, K5 by the whole frame's token count
+            attn = (q_band, k, None)
+            flash = self.use_pallas is True or h8 * w8 >= _attention._FLASH_MIN_TOKENS
+
+        def gather(x):
+            return gather_bands(x, group, dim=2, n=h8)
+
+        coords0 = coords_grid(h8, w8, device=net.device)[None]
+        coords1 = coords0.expand(b, h8, w8, 2)
+        for _ in range(self.iters):
+            corr = lookup_corr_pyramid(pyramid, coords1[:, c_lo:c_hi].contiguous(), self.corr_radius)
+            flow = _nchw(coords1 - coords0).to(self.dtype)
+            net_band, delta = self.update_block.forward_rows(
+                net, inp, _nchw(corr).to(self.dtype), flow, attn, (lo, hi), gather, flash, mesh, axis
+            )
+            net = gather(net_band)
+            coords1 = _nhwc(gather(_nchw(coords1[:, lo:hi] + _nhwc(delta).float())))
+        flow_low = coords1 - coords0
+        mask = _nhwc(self.update_block.upsample_mask(net)).float()
+        return flow_low, convex_upsample(flow_low, mask)
 
     def _train_iteration(self, net, coords1, coords0, inp, attn, pyramid):
         """One train-mode iteration (JAX ``_UpdateStep`` with

@@ -1,6 +1,19 @@
 """GMA update block: motion encoder, separable ConvGRU, flow head and
 upsample-mask head (ref: GMA/core/update.py:7-139). NCHW; attribute
 names follow the reference ``state_dict``.
+
+:meth:`GMAUpdateBlock.forward_rows` is one update of a band of rows
+[lo, hi) of the 1/8-resolution grid, for the row-split flow net
+(``parallel/flow_sharding.py``). Its convolutions reach across the band
+edge, so each stage runs on a window of rows wide enough for its reach
+and keeps the rows it computes right; a window that meets the image edge
+is cut there, where the zero padding is the whole image's. The reach of
+one update, in rows (``ROW_REACH``): the motion encoder's correlation
+branch 2 (``convc2`` 3x3, then ``conv`` 3x3), its flow branch 5
+(``convf1`` 7x7, ``convf2`` 3x3, ``conv`` 3x3); the GRU 4 (the 5x1 pass:
+q reads r h, and r is itself a 5x1 convolution; the 1x5 pass reaches no
+row); the flow head 2 (two 3x3): the band's new flow needs the hidden
+state and the GRU input on rows lo - 6 to hi + 6.
 """
 
 from __future__ import annotations
@@ -69,6 +82,20 @@ class BasicMotionEncoder(nn.Module):
         return torch.cat([out, flow], dim=1)
 
 
+#: rows each stage of one update reaches beyond the rows it computes
+ROW_REACH = {"corr": 2, "flow": 5, "gru": 4, "head": 2}
+
+
+def row_window(lo: int, hi: int, reach: int, h: int) -> tuple[int, int]:
+    """Rows [lo - reach, hi + reach), cut to the image's [0, h)."""
+    return max(lo - reach, 0), min(hi + reach, h)
+
+
+def _rows(x: torch.Tensor, window_lo: int, lo: int, hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of an NCHW tensor whose row 0 is image row ``window_lo``."""
+    return x[:, :, lo - window_lo : hi - window_lo]
+
+
 class GMAUpdateBlock(nn.Module):
     """One recurrent update: motion features -> globally aggregated
     motion -> SepConvGRU -> (new hidden state, delta flow)
@@ -109,6 +136,47 @@ class GMAUpdateBlock(nn.Module):
         motion_global = self.aggregator(attn, motion)
         net = self.gru(net, torch.cat([inp, motion, motion_global], dim=1))
         return net, self.flow_head(net)
+
+    def forward_rows(
+        self,
+        net: torch.Tensor,
+        inp: torch.Tensor,
+        corr: torch.Tensor,
+        flow: torch.Tensor,
+        attn,
+        band: tuple[int, int],
+        gather,
+        flash: bool,
+        mesh,
+        axis: str,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One update of rows band = [lo, hi) of the H rows.
+
+        :param net, inp, flow: the whole hidden state, context features
+            and flow, (B, C, H, W).
+        :param corr: the lookup of rows ``row_window(lo, hi, ROW_REACH["corr"], H)``.
+        :param attn: the band's part of the attention
+            (:meth:`Aggregate.forward_rows`).
+        :param gather: band (B, C, hi - lo, W) -> the whole (B, C, H, W),
+            every rank's band in order (``parallel.distributed.gather_bands``).
+        :return: the band's new hidden state and delta flow.
+        """
+        h = net.shape[2]
+        lo, hi = band
+        c_lo, c_hi = row_window(lo, hi, ROW_REACH["corr"], h)
+        f_lo, f_hi = row_window(lo, hi, ROW_REACH["flow"], h)
+        m_lo, m_hi = row_window(lo, hi, 1, h)  # the rows the last 3x3 (``conv``) reads
+        enc = self.encoder
+        cor = F.relu(enc.convc2(F.relu(enc.convc1(corr))))
+        flo = F.relu(enc.convf2(F.relu(enc.convf1(flow[:, :, f_lo:f_hi]))))
+        feats = torch.cat([_rows(cor, c_lo, m_lo, m_hi), _rows(flo, f_lo, m_lo, m_hi)], dim=1)
+        out = _rows(F.relu(enc.conv(feats)), m_lo, lo, hi)
+        motion = gather(torch.cat([out, flow[:, :, lo:hi]], dim=1))
+        motion_global = gather(self.aggregator.forward_rows(attn, motion, band, mesh, axis, flash))
+        g_lo, g_hi = row_window(lo, hi, ROW_REACH["gru"] + ROW_REACH["head"], h)
+        x = torch.cat([inp, motion, motion_global], dim=1)[:, :, g_lo:g_hi]
+        net = self.gru(net[:, :, g_lo:g_hi], x)
+        return _rows(net, g_lo, lo, hi), _rows(self.flow_head(net), g_lo, lo, hi)
 
     def upsample_mask(self, net: torch.Tensor) -> torch.Tensor:
         """Convex-upsampling logits (B, 576, H, W) from a hidden state."""

@@ -28,6 +28,13 @@ K1's probabilities, reached through ``apply_attention_probs(...,
 use_pallas=True)`` as in the JAX package; the default read stays a
 ``torch.matmul``.
 
+Row-split versions of K1, K5 and K4 (:func:`sharded_flash_probs_spatial`,
+:func:`sharded_flash_attend`, :func:`sharded_flash_apply_probs`; JAX
+``attention.py:543-679``) take this rank's band of the query rows (or
+probability rows) and the whole k and v: the softmax runs over keys, so
+a band needs nothing from the other ranks, and each launches its kernel
+once on its band.
+
 Each kernel launches only through its custom op (``atdn::attention_probs``,
 ``atdn::flash_attend``, ``atdn::apply_probs``; ``_kernels.define_op``),
 whose CUDA implementation counts the launch.
@@ -44,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from atdn_vslam_torch.ops import _kernels
+from atdn_vslam_torch.parallel.distributed import band_bounds, group_rank, group_size
 
 
 #: at most this many tokens materialise the probabilities once per frame
@@ -541,6 +549,61 @@ _kernels.define_op(
     "flash_attend", "(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
     flash_attend_plain, _flash_attend_fake, _flash_attend_cuda,
 )
+
+
+def _own_band(mesh, axis: str, n_rows: int, got_rows: int, what: str) -> int:
+    """The row count of this rank's band of ``n_rows`` rows over the mesh
+    axis (:func:`band_bounds`), checked against the ``got_rows`` passed."""
+    group = None if mesh is None else mesh.group(axis)
+    lo, hi = band_bounds(n_rows, group_size(group), group_rank(group))
+    if got_rows != hi - lo:
+        raise ValueError(f"{what} holds {got_rows} rows; this rank's band of {n_rows} is [{lo}, {hi})")
+    return hi - lo
+
+
+def sharded_flash_probs_spatial(
+    q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float | None = None, *, mesh, axis: str = "model"
+) -> torch.Tensor:
+    """K1 on this rank's band of the h query rows (JAX
+    ``sharded_flash_probs_spatial``): q holds the band's rows x w tokens,
+    (B, rows * w, D), k all keys; returns the band's probabilities (B,
+    rows, w, N_pad) from one K1 launch (:func:`attention_probs_spatial`).
+    The band is :func:`band_bounds` of h over ``mesh``'s ``axis``."""
+    rows = _own_band(mesh, axis, h, q.shape[1] // w if q.shape[1] % w == 0 else -1, "q")
+    return attention_probs_spatial(q, k, rows, w, scale)
+
+
+def sharded_flash_attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float | None = None,
+    *,
+    mesh,
+    axis: str = "model",
+    n_rows: int,
+    row_len: int = 1,
+) -> torch.Tensor:
+    """K5 on this rank's band of the queries (JAX ``sharded_flash_attend``):
+    the queries are ``n_rows`` rows of ``row_len`` tokens, q holds this
+    rank's band of rows, (B, rows * row_len, D), k and v all keys; one K5
+    launch (:func:`flash_attend`) gives the band's (B, rows * row_len,
+    Dv). ``row_len=1`` splits the tokens themselves."""
+    tokens = q.shape[1]
+    _own_band(mesh, axis, n_rows, tokens // row_len if tokens % row_len == 0 else -1, "q")
+    return flash_attend(q, k, v, scale)
+
+
+def sharded_flash_apply_probs(
+    probs: torch.Tensor, v: torch.Tensor, *, mesh, axis: str = "model", h: int
+) -> torch.Tensor:
+    """K4 on this rank's band of the h probability rows (JAX
+    ``sharded_flash_apply_probs``): probs (B, rows, W, K) of the band, v
+    (B, N_v, Dv) whole, cast to the probabilities' type as the JAX
+    package does; one K4 launch (:func:`flash_apply_probs`) gives the
+    band's (B, rows, W, Dv)."""
+    _own_band(mesh, axis, h, probs.shape[1], "probs")
+    return flash_apply_probs(probs, v.to(probs.dtype))
 
 
 def attend(

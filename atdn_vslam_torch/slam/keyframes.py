@@ -1,7 +1,8 @@
 """Array-backed keyframe store: poses in one float64 array, RGB frames
 as ``.npy`` files under ``<base>/rgb`` (written on a background thread)
 and optional embeddings; the port's own copy of
-``atdn_vslam_tpu/slam/keyframes.py`` without the sharded search.
+``atdn_vslam_tpu/slam/keyframes.py``, with its nearest-code search split
+over the ranks of a mesh (:func:`nearest_sharded`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,9 @@ import os
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
+import torch
+
+from atdn_vslam_torch.parallel.distributed import gather_bands
 
 
 class KeyframeStore:
@@ -129,3 +133,25 @@ class KeyframeStore:
 
     def __len__(self) -> int:
         return self.count
+
+
+def nearest_sharded(mesh, embeddings: np.ndarray, code: np.ndarray,
+                    device: str | torch.device = "cuda") -> tuple[int, np.ndarray]:
+    """Nearest keyframe by L2 code distance with the keyframes split over
+    the mesh's "data" ranks (JAX ``nearest_sharded``): each rank holds an
+    equal range of the (K, D) embeddings, padded with +inf rows, on
+    ``device`` and computes its distances there; the distances are
+    gathered and the argmin takes the lowest index of a tie, as
+    ``jnp.argmin``. Every rank passes the same arrays.
+
+    :return: (index, the (K,) float32 distances) on the host.
+    """
+    emb = np.asarray(embeddings, np.float32).reshape(len(embeddings), -1)
+    k = len(emb)
+    size, index = mesh.data, mesh.data_index
+    per = -(-k // size)
+    emb = np.concatenate([emb, np.full((per * size - k, emb.shape[1]), np.inf, np.float32)])
+    own = torch.from_numpy(emb[index * per : (index + 1) * per]).to(device)
+    q = torch.from_numpy(np.asarray(code, np.float32).reshape(1, -1)).to(device)
+    d = gather_bands(torch.linalg.vector_norm(own - q, dim=1), mesh.data_group, dim=0, n=per * size)
+    return int(torch.argmin(d)), d[:k].cpu().numpy()

@@ -14,6 +14,13 @@ refined by one flow + odometry step from that keyframe. Loop closure
 finds revisits among the keyframe codes, measures each with the same
 step, gates them geometrically and refines the keyframe trajectory with
 the pose-graph solve (``geometry/pose_graph.py``).
+
+With a mesh (``SlamRuntime(mesh=...)``, JAX ``runtime.py:60,91-94``)
+every rank streams the same frames (the per-frame step is batch 1 and
+runs whole on each rank), and the map's training, the keyframe embedding
+batches and the relocalisation search split over the mesh's "data"
+ranks; each rank gets the same map, codes and answers. Each rank keeps
+its own keyframe store: give each its own ``keyframes_path``.
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ from atdn_vslam_torch.models.factory import (
 from atdn_vslam_torch.models.mapping import MappingVAE
 from atdn_vslam_torch.ops.bilinear import forward_warp_flow
 from atdn_vslam_torch.ops.padding import InputPadder
-from atdn_vslam_torch.slam.keyframes import KeyframeStore
+from atdn_vslam_torch.parallel.distributed import gather_bands
+from atdn_vslam_torch.parallel.mesh import shard_batch
+from atdn_vslam_torch.slam.keyframes import KeyframeStore, nearest_sharded
 from atdn_vslam_torch.training.mapping import train_mapping
 from atdn_vslam_torch.utils.helpers import full_float32, log, resolve_device
 
@@ -63,16 +72,24 @@ def save_map(model: MappingVAE, keyframes_path: str) -> str:
 
 @torch.inference_mode()
 def embed_keyframes(model: MappingVAE, store: KeyframeStore, device: torch.device,
-                    batch: int = 8) -> np.ndarray:
+                    batch: int = 8, mesh=None) -> np.ndarray:
     """Every keyframe's code, flattened in HWC order: (N, h * w * C)
     float32. The last batch is padded by repeating its last keyframe, so
-    every call has one shape."""
+    every call has one shape. With ``mesh`` each batch (rounded down to
+    a multiple of the "data" size, at least one per rank) splits over the
+    "data" ranks and the codes are gathered."""
     codes = []
     n = len(store)
+    if mesh is not None:
+        batch = max(batch // mesh.data * mesh.data, mesh.data)
     for start in range(0, n, batch):
         count = min(start + batch, n) - start
         imgs = np.stack([store.read_rgb(start + min(i, count - 1)) for i in range(batch)])
+        if mesh is not None:
+            imgs = shard_batch(mesh, imgs)
         code = model.get_code(torch.from_numpy(imgs).to(device).float())
+        if mesh is not None:
+            code = gather_bands(code, mesh.data_group, dim=0, n=batch)
         codes.append(code.cpu().numpy().reshape(batch, -1)[:count])
     return np.concatenate(codes, axis=0)
 
@@ -91,6 +108,8 @@ class SlamRuntime:
         (ref: neural_slam.py:77-125).
     :param device: where the models run; default ``"cuda"``, which
         raises when no GPU is present.
+    :param mesh: split the map's training, the keyframe embedding and the
+        relocalisation search over its "data" ranks (module docstring).
     """
 
     def __init__(
@@ -101,11 +120,13 @@ class SlamRuntime:
         mapping_state_dict: Mapping[str, Any] | None = None,
         start_mode: str | None = None,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         if start_mode not in (None, "mapping", "relocalization"):
             raise ValueError(f"unknown start_mode {start_mode!r}")
         self.config = config
         self.device = resolve_device(device)
+        self._mesh = mesh
         cfg = config.slam
         self._hw = (cfg.image_height, cfg.image_width)
         self._rot_threshold = np.deg2rad(cfg.rotation_threshold_deg)
@@ -282,7 +303,9 @@ class SlamRuntime:
         log("Odometry ended, starting mapping process...")
         self._mode = "mapping"
         self._create_map()
-        self.keyframes.set_embeddings(embed_keyframes(self.mapping_model, self.keyframes, self.device))
+        self.keyframes.set_embeddings(
+            embed_keyframes(self.mapping_model, self.keyframes, self.device, mesh=self._mesh)
+        )
         self.keyframes.save()
         log("Mapping finished, changing to relocalization mode.")
         self._mode = "relocalization"
@@ -293,7 +316,7 @@ class SlamRuntime:
         # weights (neural_slam.py:347-348), and once more at the end
         train_mapping(
             self.mapping_model, self.config.mapping_train, images,
-            save_fn=lambda m: save_map(m, self.config.keyframes_path),
+            save_fn=lambda m: save_map(m, self.config.keyframes_path), mesh=self._mesh,
         )
         save_map(self.mapping_model, self.config.keyframes_path)
 
@@ -319,7 +342,13 @@ class SlamRuntime:
         im = self._prepare(image)
         with torch.inference_mode():
             code = self.mapping_model.get_code(im[None]).cpu().numpy()
-        idx, distances = self.keyframes.nearest(code)
+        if self._mesh is not None:
+            n = len(self.keyframes)
+            if self.keyframes.embeddings is None:
+                raise RuntimeError("Store has no embeddings; run mapping first")
+            idx, distances = nearest_sharded(self._mesh, self.keyframes.embeddings[:n], code, self.device)
+        else:
+            idx, distances = self.keyframes.nearest(code)
         initial = self.keyframes.poses[idx].copy()
         key_rgb = self._prepare(self.keyframes.read_rgb(idx))
         carry = self.odometry_model.init_carry(1)

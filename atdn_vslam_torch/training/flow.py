@@ -18,6 +18,14 @@ GMA/train.py:41-75,141,166-171):
   * checkpoints of the whole training state (weights, batch statistics,
     optimiser, schedule, step) under ``step_NNNNNNNN`` directories, from
     which a run resumes exactly (the reference saves weights only).
+
+Data parallel (``mesh=``, JAX ``make_train_step(mesh=...)``): each "data"
+rank takes its slice of the batch. The loss divides by the valid pixels
+of the whole batch, so each rank's loss is its share of the global loss
+and the gradients are *summed* over the ranks; the metrics are global
+sums too, batch norm (the context encoder's) sees the whole batch, and
+the clip reads the reduced gradient. The step equals the single-process
+step on the whole batch.
 """
 
 from __future__ import annotations
@@ -28,8 +36,10 @@ import os
 
 import torch
 
+from atdn_vslam_torch.models.blocks import global_batch
 from atdn_vslam_torch.models.factory import init_params
 from atdn_vslam_torch.models.flow.network import RAFTGMA
+from atdn_vslam_torch.parallel.distributed import all_reduce
 from atdn_vslam_torch.utils.helpers import full_float32
 
 MAX_FLOW = 400.0
@@ -56,29 +66,33 @@ def sequence_loss(
     valid: torch.Tensor,
     gamma: float = 0.8,
     max_flow: float = MAX_FLOW,
+    group=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """gamma-decayed L1 over the prediction stack (ref: GMA/train.py:41-65).
 
     :param preds: (iters, B, H, W, 2) upsampled predictions.
     :param flow_gt: (B, H, W, 2); valid: (B, H, W) in {0, 1}.
+    :param group: the inputs are this rank's slice of a batch split over
+        the group's ranks: the loss is this slice's share of the whole
+        batch's (their sum over the ranks), the metrics the whole batch's.
     :return: the loss and the last prediction's EPE, 1px, 3px and 5px
         over the valid pixels, as device scalars (the metrics detached).
     """
     n = preds.shape[0]
     mag = torch.linalg.vector_norm(flow_gt, dim=-1)
     vw = ((valid >= 0.5) & (mag < max_flow)).float()
-    denom = vw.sum() + 1e-8
+    epe_map = torch.linalg.vector_norm(preds[-1].detach() - flow_gt, dim=-1)
+    sums = torch.stack([
+        vw.sum(), (epe_map * vw).sum(), ((epe_map < 1) * vw).sum(), ((epe_map < 3) * vw).sum(),
+        ((epe_map < 5) * vw).sum(),
+    ])
+    (sums,) = all_reduce([sums], group)
+    denom = sums[0] + 1e-8
     weights = gamma ** torch.arange(n - 1, -1, -1, device=preds.device, dtype=torch.float32)
     abs_err = (preds - flow_gt[None]).abs()
     per_iter = (abs_err.sum(dim=-1) * vw[None]).sum(dim=(1, 2, 3)) / denom
     loss = (weights * per_iter).sum()
-    epe_map = torch.linalg.vector_norm(preds[-1].detach() - flow_gt, dim=-1)
-    metrics = {
-        "epe": (epe_map * vw).sum() / denom,
-        "1px": ((epe_map < 1) * vw).sum() / denom,
-        "3px": ((epe_map < 3) * vw).sum() / denom,
-        "5px": ((epe_map < 5) * vw).sum() / denom,
-    }
+    metrics = {name: sums[i] / denom for i, name in enumerate(("epe", "1px", "3px", "5px"), 1)}
     return loss, metrics
 
 
@@ -196,20 +210,34 @@ def train_step(
     flow_gt: torch.Tensor,
     valid: torch.Tensor,
     gamma: float = 0.8,
+    mesh=None,
 ) -> tuple[FlowTrainState, dict[str, torch.Tensor]]:
     """One optimiser step on a batch: images (B, H, W, 3) in [0, 255],
     ``flow_gt`` (B, H, W, 2), ``valid`` (B, H, W). Returns the state
     (updated in place) and the metrics ``loss``, ``epe``, ``1px``,
     ``3px``, ``5px`` and ``grad_norm`` (before the clip) as device
-    scalars; the clipped gradients stay in ``.grad`` until the next step."""
+    scalars; the clipped gradients stay in ``.grad`` until the next step.
+
+    :param mesh: the inputs are this rank's slice of the global batch;
+        loss, metrics, gradients and batch statistics are the global
+        batch's.
+    """
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
+    group = None if mesh is None else mesh.data_group
     with full_float32():  # the backward too: autograd runs after forward() returns
-        preds = model(im1, im2, test_mode=False)
-        loss, metrics = sequence_loss(preds.float(), flow_gt, valid, gamma)
+        with global_batch(group):
+            preds = model(im1, im2, test_mode=False)
+        loss, metrics = sequence_loss(preds.float(), flow_gt, valid, gamma, group=group)
         loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        params = [p for p in model.parameters() if p.grad is not None]
+        if group is not None:  # each rank's loss is its share: the sums are the global batch's
+            *summed, loss = all_reduce([p.grad for p in params] + [loss.detach()[None]], group)
+            for p, g in zip(params, summed):
+                p.grad = g
+            loss = loss[0]
+        grads = [p.grad for p in params]
         grad_norm = clip_by_global_norm(grads, state.clip)
         state.optimizer.step()
     state.scheduler.step()

@@ -13,6 +13,12 @@
 Random draws come from explicit generators: the batch order from
 ``np.random.default_rng(seed)`` as in the JAX package, the jitter
 factors from a ``torch.Generator`` seeded with ``seed``.
+
+Data parallel (``mesh=``, JAX ``make_train_step(mesh=...)``): every rank
+draws the order and the jitter factors of the whole batch and takes its
+slice of both; batch norm sees the whole batch and loss and gradients
+are averaged over the "data" ranks before the step, which then equals
+the single-process step.
 """
 
 from __future__ import annotations
@@ -25,8 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from atdn_vslam_torch.config import MappingTrainConfig, TrainConfig
+from atdn_vslam_torch.models.blocks import global_batch
 from atdn_vslam_torch.models.factory import init_params
 from atdn_vslam_torch.models.mapping import MappingVAE, normalize_rgb
+from atdn_vslam_torch.parallel.distributed import all_reduce
+from atdn_vslam_torch.parallel.mesh import shard_batch
 from atdn_vslam_torch.training.losses import mapping_reconstruction_loss
 from atdn_vslam_torch.utils.helpers import full_float32
 
@@ -114,19 +123,32 @@ def make_optimizer(model: torch.nn.Module, cfg: MappingTrainConfig, steps_total:
 
 
 def train_step(model: MappingVAE, optimizer, scheduler, images: torch.Tensor,
-               factors: JitterFactors) -> torch.Tensor:
+               factors: JitterFactors, mesh=None) -> torch.Tensor:
     """One optimizer step on a batch of NHWC uint8 images; returns the
     loss. The batch-norm statistics move in the training forward; the
-    gradients stay in the parameters' ``.grad`` until the next step."""
+    gradients stay in the parameters' ``.grad`` until the next step.
+
+    :param mesh: ``images`` and ``factors`` are this rank's slices of the
+        global batch; loss, gradients and statistics are the global
+        batch's.
+    """
     images = images.float()
     model.train()
     optimizer.zero_grad()
-    _, _, _, decoded = model(color_jitter(images, factors))
+    group = None if mesh is None else mesh.data_group
+    with global_batch(group):
+        _, _, _, decoded = model(color_jitter(images, factors))
     with torch.no_grad():
         target = mapping_target(images, decoded.shape[1:3])
     loss = mapping_reconstruction_loss(decoded, target)
     with full_float32():
         loss.backward()
+    if group is not None:
+        params = [p for p in model.parameters() if p.grad is not None]
+        *grads, loss = all_reduce([p.grad for p in params] + [loss.detach()[None]], group, mean=True)
+        for p, g in zip(params, grads):
+            p.grad = g
+        loss = loss[0]
     optimizer.step()
     scheduler.step()
     return loss.detach()
@@ -139,6 +161,7 @@ def train_mapping(
     log_fn: Callable[[int, float], None] | None = None,
     save_fn: Callable[[MappingVAE], None] | None = None,
     init_state_dict: dict | None = None,
+    mesh=None,
 ) -> MappingVAE:
     """Map building over keyframe images (N, H, W, 3) uint8
     (ref: neural_slam.py:305-352). Starts from ``init_state_dict`` or
@@ -148,9 +171,17 @@ def train_mapping(
     :param log_fn: called with (epoch, mean loss) after each epoch.
     :param save_fn: called with the model after each epoch (the
         reference saves the weights every epoch, neural_slam.py:347-348).
+    :param mesh: split each batch over the "data" ranks (each rank passes
+        the same ``images``). The batch is rounded down to a multiple of
+        the data size; with fewer keyframes than ranks each rank trains
+        alone on the whole batch, the JAX package's rule.
     """
     n = len(images)
     batch = min(cfg.batch_size, n)
+    if mesh is not None:
+        batch = batch // mesh.data * mesh.data
+        if batch == 0:
+            mesh, batch = None, min(cfg.batch_size, n)
     steps_per_epoch = max(n // batch, 1)
     steps_total = cfg.epochs * steps_per_epoch
     if init_state_dict is None:
@@ -166,8 +197,11 @@ def train_mapping(
         epoch_loss = 0.0
         for i in range(steps_per_epoch):
             idx = order[i * batch : (i + 1) * batch]
-            imgs = torch.from_numpy(images[idx]).to(device)
-            loss = train_step(model, optimizer, scheduler, imgs, jitter_factors(len(idx), generator))
+            imgs, factors = images[idx], jitter_factors(len(idx), generator)
+            if mesh is not None:
+                imgs, *factors = shard_batch(mesh, (imgs, *factors))
+            imgs = torch.from_numpy(imgs).to(device)
+            loss = train_step(model, optimizer, scheduler, imgs, tuple(factors), mesh)
             epoch_loss += float(loss)
         if log_fn is not None:
             log_fn(epoch, epoch_loss / steps_per_epoch)

@@ -21,6 +21,15 @@ Random draws come from explicit generators: the seeded initial weights
 (``models.factory.init_params``) and the dropout masks (a
 ``torch.Generator`` on the model's device, both seeded from
 ``TrainConfig.seed``).
+
+Data parallel (``mesh=``, JAX ``make_train_step(mesh=...)``): each rank of
+the "data" axis takes its slice of the global batch
+(``parallel.shard_batch``); batch norm and dropout see the global batch
+(``models.blocks.global_batch``) and the gradients are averaged over the
+ranks before ``grad_norm`` and the step, so the step equals the
+single-process step on the global batch and the weights stay the same
+on every rank. No ``DistributedDataParallel``: its ``module.`` prefix
+would rename the ``state_dict`` keys.
 """
 
 from __future__ import annotations
@@ -33,9 +42,11 @@ import numpy as np
 import torch
 
 from atdn_vslam_torch.config import Config, LossConfig, TrainConfig
-from atdn_vslam_torch.models.blocks import Dropout
+from atdn_vslam_torch.models.blocks import Dropout, global_batch
 from atdn_vslam_torch.models.factory import init_params
 from atdn_vslam_torch.models.odometry import ATDNVO
+from atdn_vslam_torch.parallel.distributed import all_reduce
+from atdn_vslam_torch.parallel.mesh import shard_batch
 from atdn_vslam_torch.training.losses import clvo_loss
 from atdn_vslam_torch.training.mapping import cosine_lr
 from atdn_vslam_torch.utils.helpers import full_float32
@@ -86,23 +97,35 @@ def train_step(
     true_rot: torch.Tensor,
     true_tr: torch.Tensor,
     loss_cfg: LossConfig,
+    mesh=None,
 ) -> dict[str, torch.Tensor | int]:
     """One optimiser step on flow windows (B, T, H, W, 2) and their
     (B, T, 3) targets. Returns ``loss`` and ``grad_norm`` (the global
     norm of the gradients, before the step) as device scalars and
     ``step``, the step's index; the gradients stay in the parameters'
-    ``.grad`` until the next step."""
+    ``.grad`` until the next step.
+
+    :param mesh: the inputs are this rank's slice of the global batch;
+        loss, gradients and batch statistics are the global batch's.
+    """
     model = state.model
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
-    with full_float32():
+    group = None if mesh is None else mesh.data_group
+    with full_float32(), global_batch(group):
         (rot, tr), _ = model(flows, model.init_carry(flows.shape[0]))
         loss = clvo_loss(
             rot, tr, true_rot, true_tr, alpha=loss_cfg.alpha, w=loss_cfg.w,
             delta=loss_cfg.delta, khi=loss_cfg.khi,
         )
         loss.backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    params = [p for p in model.parameters() if p.grad is not None]
+    if group is not None:  # the mean of the slices' means: the global batch's loss and gradients
+        *reduced, loss = all_reduce([p.grad for p in params] + [loss.detach()[None]], group, mean=True)
+        for p, g in zip(params, reduced):
+            p.grad = g
+        loss = loss[0]
+    grads = [p.grad for p in params]
     grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     state.optimizer.step()
     state.scheduler.step()
@@ -117,14 +140,18 @@ def train_epoch(
     loss_cfg: LossConfig,
     log_every: int = 50,
     log_fn: Callable[[int, dict], None] | None = None,
+    mesh=None,
 ) -> list[float]:
     """One epoch over host batches (flows, rot, tr), each moved to the
-    model's device; returns the losses."""
+    model's device (with ``mesh``, this rank's slice of each); returns the
+    losses."""
     device = next(state.model.parameters()).device
     losses = []
     for i, batch in enumerate(batches):
+        if mesh is not None:
+            batch = shard_batch(mesh, tuple(batch))
         flows, rot, tr = (torch.from_numpy(np.asarray(x, np.float32)).to(device) for x in batch)
-        metrics = train_step(state, flows, rot, tr, loss_cfg)
+        metrics = train_step(state, flows, rot, tr, loss_cfg, mesh)
         losses.append(float(metrics["loss"]))
         if log_fn is not None and i % log_every == 0:
             log_fn(i, metrics)

@@ -99,7 +99,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
       ``position_and_content`` at 376x1232, bf16, 12 iterations, 6 pairs
       with the frame cache: ms per pair, peak memory, K1 0 and K2 12 per
       pair, bf16 against float32 flows;
-  19. the ``kernels`` line (each kernel with its op, ``atdn::<name>``),
+  19. parallel: the unsplit references in this process, then the ranks
+      as child processes (``parallel_worker``): two share the card
+      through gloo (NCCL refuses two ranks on one GPU) and run the
+      row-split KITTI flow in float32 (within ``FLOW_F32_TOL`` of the
+      unsplit flow) and bf16 (within ``FLOW_BF16_REL`` of float32's; K1
+      once and K2 12 times per pair on each rank), the row-split 2x flow
+      (K5 and K2 12 times per pair; ``PAR_FLOW_2X_TOL``), K4's row-split
+      entry point, the odometry (``configs/kitti.yaml``, batch 24 -> 12
+      per rank), map and flow train steps (against one process's step on
+      the whole batch and against one rank of the same code), the
+      ``FLOW_TRAIN`` steps (batch 6 -> 3 per rank) timed,
+      ``SlamRuntime(mesh=...)`` (poses and nearest keyframes equal to one
+      process's) and the edge-split solve at 1000 poses; then one rank
+      runs the KITTI pair and the three steps through NCCL. Each rank's
+      ms, peak memory and launches; two ranks share the card's SMs, so
+      their ms are no speed-up figure;
+  20. the ``kernels`` line (each kernel with its op, ``atdn::<name>``),
       the card, and last the ``ok`` line.
 
 After phase 10, k1_backward, k2_backward and k3_backward: each backward
@@ -108,7 +124,7 @@ autograd through the plain version on the card, then its bf16 ms
 against the bound of its bytes and products (``backward_*`` in the
 kernels line).
 
-The lines of phases 12-18 carry their own ``seconds``.
+The lines of phases 12-19 carry their own ``seconds``.
 
 The kernel lines of phase 3 also cover K2n (the three small KITTI
 levels), K4 (K1's KITTI output), K2s (the row-padded KITTI pyramid) and
@@ -2588,6 +2604,541 @@ def positional(device, small_hw=(96, 192), small_iters=2, hw=FULL_HW, iters=12, 
     return out
 
 
+# ----------------------------------------------------------------------
+# Parallelism (M13): the ranks are child processes of this script. Two
+# share the one card through gloo (NCCL refuses a second rank on the same
+# GPU; gloo runs its all-reduce and all-gather on CUDA tensors), one runs
+# through a real NCCL communicator. Two processes share one card's SMs,
+# so their times are no speed-up figure.
+# ----------------------------------------------------------------------
+
+# the row-split bf16 flow at 2x against the unsplit bf16 flow, px at 1/8
+# resolution: a band's convolutions run over a window of rows, for which
+# cuDNN may take another algorithm than for the whole frame, so a bf16
+# output may round the other way; the kind of difference the forced and
+# default 2x paths show (FLOW_FORCED_TOL)
+PAR_FLOW_2X_TOL = FLOW_FORCED_TOL
+PAR_PAIRS = 4  # frame pairs per row-split flow run, the first untimed
+PAR_STEPS = 3  # timed data-parallel train steps after the compared one
+PAR_MAP_BATCH = 4
+PAR_GRAPH_POSES = 1000
+
+
+def _par_flow_net(device, hw, bf16: bool, iters: int = 12):
+    """The slices' flow net (seed 0, GMA gamma 0.5) at ``hw`` and their
+    frames (seed 1), ``PAR_PAIRS`` pairs."""
+    from atdn_vslam_torch.models.factory import build_flow_model, init_params
+
+    cfg = flow_config(os.devnull, hw, iters, bf16)
+    weights = init_params(build_flow_model(cfg, "cpu"), 0)
+    with torch.no_grad():
+        weights.update_block.aggregator.gamma.fill_(0.5)
+    model = build_flow_model(cfg, device)
+    model.load_state_dict(weights.state_dict())
+    frames = [torch.from_numpy(f).to(device).float()[None] for f in synthetic_frames(PAR_PAIRS + 1, hw, seed=1)]
+    return model, frames
+
+
+def _par_flow_run(device, hw, bf16: bool, mesh) -> tuple[dict, tuple]:
+    """The flow net over ``PAR_PAIRS`` pairs, unsplit (``mesh`` None) or
+    row-split over the mesh's "model" ranks: ms per pair after the first
+    (host clock around each synchronised pair), peak memory, launches,
+    and the first pair's (flow_low, flow_up) on the CPU."""
+    from atdn_vslam_torch.parallel import sharded_flow_infer
+
+    model, frames = _par_flow_net(device, hw, bf16)
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    times, first = [], None
+    with torch.inference_mode():
+        for im1, im2 in zip(frames[:-1], frames[1:]):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = model(im1, im2) if mesh is None else sharded_flow_infer(model, im1, im2, mesh)
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = tuple(x.float().cpu() for x in out)
+    stats = {"ms_per_pair": float(np.mean(times[1:])), "pair_ms": times, "launches": read_launches(),
+             "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+    return stats, first
+
+
+def _par_probs(device, hw8=(47, 154), d=128, seed=30):
+    """K1-shaped bf16 probabilities (zero pad columns) and values."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = hw8[0] * hw8[1]
+    p = torch.rand((1, *hw8, n), generator=g, device=device)
+    probs = F.pad(p / p.sum(-1, keepdim=True), (0, -n % 128)).to(torch.bfloat16)
+    return probs, torch.randn((1, n, d), generator=g, device=device).to(torch.bfloat16)
+
+
+def _par_odometry(device, mesh, steps: int = 0, seed: int = 17) -> tuple[dict, dict]:
+    """One odometry train step at ``configs/kitti.yaml`` (batch 24 x 6
+    flows at 376x1232, float32) from seeded weights on the odometry_train
+    phase's synthetic batch, split over the mesh's "data" ranks with a
+    mesh; then ``steps`` more steps timed."""
+    from atdn_vslam_torch.config import load_config
+    from atdn_vslam_torch.models.factory import build_odometry_model
+    from atdn_vslam_torch.parallel import shard_batch
+    from atdn_vslam_torch.training import odometry as train
+
+    cfg = load_config(os.path.join(REPO, "configs", "kitti.yaml"))
+    tc = cfg.train
+    model = build_odometry_model(cfg, device, image_hw=FULL_HW)
+    state = train.init_state(model, tc, 1 + steps, seed=seed)
+    g = torch.Generator(device).manual_seed(seed)
+    shape = (tc.batch_size, tc.sequence_length)
+    batch = (torch.randn((*shape, *FULL_HW, 2), generator=g, device=device) * 20.0,
+             torch.randn((*shape, 3), generator=g, device=device) * 0.02,
+             torch.randn((*shape, 3), generator=g, device=device) * 0.5)
+    if mesh is not None:
+        batch = shard_batch(mesh, batch)
+    metrics = train.train_step(state, *batch, cfg.loss, mesh)
+    result = _par_step_tensors(model, {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"]})
+    step_ms = []
+    for _ in range(steps):
+        _sync(device)
+        t0 = time.perf_counter()
+        float(train.train_step(state, *batch, cfg.loss, mesh)["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"batch_per_rank": int(batch[0].shape[0]), "step_ms": step_ms}, result
+
+
+def _par_step_tensors(model, metrics: dict) -> dict:
+    return {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None},
+        "stats": {k: v.detach().cpu() for k, v in model.state_dict().items() if "running" in k},
+    }
+
+
+def _par_map(device, mesh, hw=(96, 192), seed=13) -> dict:
+    """One float32 map train step (TF32 off) at 96x192, batch
+    ``PAR_MAP_BATCH``, seeded weights, images and jitter factors."""
+    from atdn_vslam_torch.config import MappingTrainConfig
+    from atdn_vslam_torch.models.factory import init_params
+    from atdn_vslam_torch.models.mapping import MappingVAE
+    from atdn_vslam_torch.parallel import shard_batch
+    from atdn_vslam_torch.training import mapping as train
+    from atdn_vslam_torch.utils.helpers import full_float32
+
+    b = PAR_MAP_BATCH
+    images = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (b, *hw, 3), dtype=np.uint8))
+    factors = train.jitter_factors(b, torch.Generator().manual_seed(seed))
+    model = MappingVAE().to(device)
+    model.load_state_dict(init_params(MappingVAE(), seed).state_dict())
+    opt, sched = train.make_optimizer(model, MappingTrainConfig(epochs=1, batch_size=b, seed=seed), 1)
+    if mesh is not None:
+        images, *factors = shard_batch(mesh, (images, *factors))
+    with full_float32():
+        loss = train.train_step(model, opt, sched, images.to(device), tuple(factors), mesh)
+    return _par_step_tensors(model, {"loss": loss})
+
+
+def _par_flow_train(device, mesh, hw=(96, 192), batch=2, iters=3, seed=18) -> dict:
+    """flow_train_agreement's float32 train step (TF32 off; K1, K2 and
+    their backward passes), split over the mesh's "data" ranks."""
+    from atdn_vslam_torch.config import Config, FlowNetConfig
+    from atdn_vslam_torch.models.factory import build_flow_train_model
+    from atdn_vslam_torch.parallel import shard_batch
+    from atdn_vslam_torch.training import flow as train
+
+    cfg = Config(flow=FlowNetConfig(iters=iters, mixed_precision=False))
+    data = shifted_pairs(batch, hw, torch.device("cpu"), seed, max_shift=40, min_shift=32)
+    if mesh is not None:
+        data = shard_batch(mesh, data)
+    model = build_flow_train_model(cfg, device)
+    model.load_state_dict(seeded_weights(cfg, seed)[0])
+    state = train.init_state(model, 1e-4, 10, 1e-5, 1.0, seed=None)
+    reset_launches()
+    _, metrics = train.train_step(state, *(x.to(device) for x in data), mesh=mesh)
+    out = _par_step_tensors(model, metrics)
+    out["launches"] = read_launches()
+    return out
+
+
+def _par_flow_batch_noise(device, hw=(96, 192), batch=2, iters=3, seed=18) -> dict:
+    """The plain float32 flow train step's own dependence on how its batch
+    is cut, on this card: the gradients of ``_par_flow_train``'s batch in
+    one forward and backward against the sum of one per sample (the
+    context encoder in eval mode, so no statistic couples the samples;
+    the loss over the whole batch's valid pixels), as each module group's
+    largest difference over its largest gradient. No collective runs."""
+    from atdn_vslam_torch.config import Config, FlowNetConfig
+    from atdn_vslam_torch.models.factory import build_flow_train_model
+    from atdn_vslam_torch.training import flow as train
+    from atdn_vslam_torch.utils.helpers import full_float32
+
+    cfg = Config(flow=FlowNetConfig(iters=iters, mixed_precision=False))
+    weights = seeded_weights(cfg, seed)[0]
+    data = [x.to(device) for x in shifted_pairs(batch, hw, torch.device("cpu"), seed, max_shift=40, min_shift=32)]
+    denom = float(data[3].sum())
+
+    def grads(cuts) -> dict:
+        model = build_flow_train_model(cfg, device)
+        model.load_state_dict(weights)
+        model.cnet.eval()
+        with full_float32():
+            for cut in cuts:
+                im1, im2, flow, valid = (x[cut] for x in data)
+                loss, _ = train.sequence_loss(model(im1, im2, test_mode=False).float(), flow, valid)
+                (loss * float(valid.sum()) / denom).backward()
+        return {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    whole, parts = grads([slice(0, batch)]), grads([slice(i, i + 1) for i in range(batch)])
+    scale, diff = {}, {}
+    for n, g in whole.items():
+        group = n.split(".")[0]
+        scale[group] = max(scale.get(group, 0.0), float(g.abs().max()))
+        diff[group] = max(diff.get(group, 0.0), float((g - parts[n]).abs().max()))
+    return {group: diff[group] / scale[group] for group in scale}
+
+
+def _par_flow_train_timed(device, mesh, seed=23) -> dict:
+    """The flow-training configuration (``FLOW_TRAIN``, bf16 compute),
+    its batch of 6 split over the "data" ranks: a warm-up step, then
+    ``PAR_STEPS`` steps timed, launches per step."""
+    from atdn_vslam_torch.config import Config, FlowNetConfig
+    from atdn_vslam_torch.models.factory import build_flow_train_model
+    from atdn_vslam_torch.parallel import shard_batch
+    from atdn_vslam_torch.training import flow as train
+
+    c = FLOW_TRAIN
+    cfg = Config(flow=FlowNetConfig(iters=c["iters"]))
+    model = build_flow_train_model(cfg, device)
+    model.load_state_dict(seeded_weights(cfg, seed)[0])
+    state = train.init_state(model, c["lr"], c["steps_total"], c["wd"], c["clip"], c["schedule"], seed=None)
+    batch = shard_batch(mesh, shifted_pairs(c["batch"], c["hw"], device, seed))
+    losses, step_ms = [], []
+    for i in range(1 + PAR_STEPS):
+        if i == 1:
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        losses.append(float(train.train_step(state, *batch, gamma=c["gamma"], mesh=mesh)[1]["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"hw": list(c["hw"]), "batch": c["batch"], "batch_per_rank": int(batch[0].shape[0]),
+            "iters": c["iters"], "first_step_ms": step_ms[0], "step_ms": step_ms[1:], "losses": losses,
+            "launches": read_launches(), "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+
+
+def _par_runtime(device, mesh, path: str, hw=(96, 192), frames=6, queries=(1, 4)) -> dict:
+    """The runtime at 96x192 (float32 flow, 2 iterations, zero keyframe
+    thresholds): ``frames`` streamed, ``end_odometry`` (the map: 1 epoch
+    of batch 4 on the keyframes), then keyframes' own frames queried."""
+    from atdn_vslam_torch.config import MappingTrainConfig
+    from atdn_vslam_torch.slam import SlamRuntime
+
+    cfg = flow_config(path, hw, 2, bf16=False)
+    cfg = dataclasses.replace(
+        cfg, slam=dataclasses.replace(cfg.slam, rotation_threshold_deg=0.0, translation_threshold=0.0),
+        mapping_train=MappingTrainConfig(epochs=1, batch_size=4),
+    )
+    clip = synthetic_frames(frames, hw, seed=1)
+    rt = SlamRuntime(cfg, *seeded_weights(cfg, seed=0), device=device, mesh=mesh)
+    rt.start_odometry()
+    poses = np.stack([rt(f) for f in clip])
+    rt.end_odometry()
+    answers = [rt(clip[q]) for q in queries]
+    return {"poses": poses.tolist(), "nearest": [int(np.argmin(a[2])) for a in answers],
+            "refined": [a[1].tolist() for a in answers], "queries": list(queries)}
+
+
+def _par_pose_graph(device, mesh, reps: int = 2, dtype=torch.float32) -> tuple[dict, dict]:
+    """The dense and CG solves of the pose_graph phase's chain at
+    ``PAR_GRAPH_POSES`` poses, edges split over the "data" ranks (one
+    process: ``optimize_pose_graph``); ms after a warm-up."""
+    from atdn_vslam_torch.geometry.pose_graph import optimize_pose_graph, optimize_pose_graph_sharded
+
+    graph = [x.to(device, dtype) if x.is_floating_point() else x.to(device)
+             for x in drifted_graph(PAR_GRAPH_POSES, seed=PAR_GRAPH_POSES)]
+    stats, poses = {}, {}
+    for solver in ("dense", "cg"):
+        def solve():
+            if mesh is None:
+                return optimize_pose_graph(*graph, solver=solver)
+            return optimize_pose_graph_sharded(mesh, *graph, solver=solver)
+
+        float(solve()[1])
+        ms = []
+        for _ in range(reps):
+            _sync(device)
+            t0 = time.perf_counter()
+            got, mse = solve()
+            mse = float(mse)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        stats[solver] = {"ms": float(np.mean(ms)), "ms_runs": ms, "mse_after": mse,
+                         "edges": int(graph[1].shape[0])}
+        poses[solver] = got.cpu()
+    return stats, poses
+
+
+def parallel_worker(rank: int, world: int, port: int, work: str, backend: str) -> None:
+    """One rank of the ``parallel`` phase, a child process of this script
+    on card 0: joins the process group, runs its part of each case and
+    writes ``<backend>_rank<rank>.pt``; prints its numbers and launch
+    counts as JSON. With ``"nccl"`` (one rank) only the KITTI flow pair
+    and the odometry step run."""
+    from atdn_vslam_torch.config import MeshConfig
+    from atdn_vslam_torch.parallel import distributed, make_mesh
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    distributed.initialize(f"localhost:{port}", world, rank, backend=backend, device=device)
+    rows = make_mesh(MeshConfig(data=1, model=world))
+    batch = make_mesh(MeshConfig(data=world, model=1))
+    out, tensors = {"rank": rank, "world": world, "backend": backend}, {}
+    out["kitti_f32"], tensors["kitti_f32"] = _par_flow_run(device, FULL_HW, False, rows)
+    out["odometry"], tensors["odometry"] = _par_odometry(device, batch, steps=PAR_STEPS)
+    torch.cuda.empty_cache()
+    tensors["map"] = _par_map(device, batch)
+    tensors["flow_train"] = _par_flow_train(device, batch)
+    out["flow_train_launches"] = tensors["flow_train"].pop("launches")
+    if backend == "gloo":
+        out["kitti_bf16"], tensors["kitti_bf16"] = _par_flow_run(device, FULL_HW, True, rows)
+        out["2x_bf16"], tensors["2x_bf16"] = _par_flow_run(device, HW_2X, True, rows)
+        torch.cuda.empty_cache()
+        from atdn_vslam_torch.ops.attention import sharded_flash_apply_probs
+
+        probs, v = _par_probs(device)
+        lo, hi = distributed.band_bounds(probs.shape[1], world, rows.model_index)
+        reset_launches()
+        tensors["apply_probs"] = sharded_flash_apply_probs(probs[:, lo:hi], v, mesh=rows, h=probs.shape[1]).cpu()
+        out["apply_probs"] = {"rows": [lo, hi], "launches": read_launches()}
+        out["flow_train_timed"] = _par_flow_train_timed(device, batch)
+        torch.cuda.empty_cache()
+        out["runtime"] = _par_runtime(device, batch, os.path.join(work, f"kf_rank{rank}"))
+        if rank == 0:  # the single-process runtime in this process, for equality
+            out["runtime_single"] = _par_runtime(device, None, os.path.join(work, "kf_single"))
+        out["pose_graph"], tensors["pose_graph"] = _par_pose_graph(device, batch)
+    torch.save(tensors, os.path.join(work, f"{backend}_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out))
+
+
+def _par_spawn(work: str, backend: str, world: int, timeout: float = 900.0) -> list[dict]:
+    """Start ``world`` ranks of :func:`parallel_worker`, wait for all,
+    and return their JSON lines with their tensors under ``"tensors"``;
+    a rank that fails fails the phase (the others are stopped)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for rank in range(world):
+        code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+                f"chip_smoke.parallel_worker({rank}, {world}, {port}, {work!r}, {backend!r})")
+        log = open(os.path.join(work, f"{backend}_rank{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=log, text=True))
+    outs = []
+    try:
+        for rank, p in enumerate(procs):
+            stdout, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                logs[rank].flush()
+                with open(logs[rank].name) as f:
+                    raise AssertionError(f"parallel: {backend} rank {rank} failed:\n{f.read()[-4000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for rank, out in enumerate(outs):
+        out["tensors"] = torch.load(os.path.join(work, f"{backend}_rank{rank}.pt"))
+    return outs
+
+
+def _par_flow_err(got: tuple, ref: tuple) -> dict:
+    return {name: float((g - r).abs().max()) for name, g, r in zip(("flow_low", "flow_up"), got, ref)}
+
+
+def _par_check_step(name: str, got: dict, ref: dict, loss_rtol: float, grad_rel, stats_tol: dict) -> dict:
+    """A train step against another: the loss, each gradient within
+    ``grad_rel`` (a float, or a dict by module group) of the largest
+    gradient of its module group (the name's first part), and the batch
+    statistics. By group, as ``FLOW_GRAD_REL``: at KITTI's full batch a
+    gradient that is a near-cancelling sum (the first convolution's bias
+    under batch norm) is float32 rounding of its own size, however the
+    batch is split. Raises listing every tensor out of bounds."""
+    loss, want = got["metrics"]["loss"], ref["metrics"]["loss"]
+    loss_err = abs(loss - want) / abs(want)
+    bad = []
+    if not np.isfinite(loss) or loss_err > loss_rtol:
+        bad.append(f"loss {loss} against {want}")
+    if got["grads"].keys() != ref["grads"].keys():
+        raise AssertionError(f"parallel {name}: gradients of other parameters")
+    groups: dict = {}
+    for n, g in ref["grads"].items():
+        groups[n.split(".")[0]] = max(groups.get(n.split(".")[0], 0.0), float(g.abs().max()))
+    errs = {}
+    for n, g in got["grads"].items():
+        group = n.split(".")[0]
+        rel = grad_rel[group] if isinstance(grad_rel, dict) else grad_rel
+        err = float((g - ref["grads"][n]).abs().max())
+        errs[n] = err / groups[group]
+        if not bool(g.isfinite().all()) or not err <= rel * groups[group]:
+            bad.append(f"gradient of {n} differs by {err} > {rel} x {groups[group]}")
+    stats_err = 0.0
+    for n, s in got["stats"].items():
+        try:
+            stats_err = max(stats_err, check_close(f"{n}", s, ref["stats"][n], **stats_tol))
+        except AssertionError as e:
+            bad.append(str(e)[:300])
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    if bad:
+        raise AssertionError(f"parallel {name}: " + "; ".join(bad[:12]) + f"; worst {worst}")
+    return {"loss_rel_err": loss_err, "max_grad_err_of_group_max": worst[0][1], "worst": worst,
+            "max_stats_err": stats_err}
+
+
+def parallel_phase(device, work: str) -> dict:
+    """The ``parallel`` phase: the unsplit references in this process,
+    then two ranks sharing the card through gloo and one rank through
+    NCCL, each a child process, held against them (see the constants)."""
+    t_start = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    # the ranks pick their convolution algorithms by cuDNN's heuristics;
+    # so do the references
+    benchmark, torch.backends.cudnn.benchmark = torch.backends.cudnn.benchmark, False
+    ref, ref_t = {}, {}
+    for name, hw, bf16 in (("kitti_f32", FULL_HW, False), ("kitti_bf16", FULL_HW, True),
+                           ("2x_bf16", HW_2X, True)):
+        ref[name], ref_t[name] = _par_flow_run(device, hw, bf16, None)
+        torch.cuda.empty_cache()
+    from atdn_vslam_torch.ops.attention import flash_apply_probs
+
+    probs, v = _par_probs(device)
+    ref_t["apply_probs"] = flash_apply_probs(probs, v).cpu()
+    del probs, v
+    ref_t["odometry"] = _par_odometry(device, None)[1]
+    torch.cuda.empty_cache()
+    ref_t["map"] = _par_map(device, None)
+    ref_t["flow_train"] = _par_flow_train(device, None)
+    ref_t["flow_train"].pop("launches")
+    ref["pose_graph"], ref_t["pose_graph"] = _par_pose_graph(device, None)
+    # the dense float32 solve at 1000 poses lies ~1e-3 from the float64
+    # solve, past GRAPH_POSE_ATOL: the split solve is held within twice
+    # the single float32 solve's distance from float64, or GRAPH_POSE_ATOL
+    # if larger
+    ref["pose_graph_float64"], ref_t["pose_graph_float64"] = _par_pose_graph(device, None, 1, torch.float64)
+    ref["flow_batch_noise"] = _par_flow_batch_noise(device)
+    # a split flow step computes each rank's samples as a batch of its
+    # own: it is held within twice the plain step's own distance between
+    # its batch in one pass and per sample, or FLOW_GRAD_REL if larger
+    flow_rel = {g: max(FLOW_GRAD_REL[g], 2.0 * ref["flow_batch_noise"][g]) for g in FLOW_GRAD_REL}
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = benchmark
+
+    gloo = _par_spawn(work, "gloo", 2)
+    nccl = _par_spawn(work, "nccl", 1)
+
+    checks, failures = {}, []
+
+    def check(key: str, what: str, fn):
+        """Run one comparison; a failure is recorded and the others still run."""
+        try:
+            checks.setdefault(key, {})[what] = fn()
+        except AssertionError as e:
+            failures.append(f"{key} {what}: {str(e)[:1500]}")
+
+    def expect(cond: bool, msg: str):
+        if not cond:
+            raise AssertionError(msg)
+        return True
+
+    def flow_within(got, want, tol):
+        err = _par_flow_err(got, want)
+        expect(max(err.values()) <= tol, f"flow differs by {err} > {tol}")
+        return err
+
+    def bf16_within(got, want):
+        err = _par_flow_err(got, want)
+        rel = {n: err[n] / float(r.abs().max()) for n, r in zip(err, want)}
+        expect(max(rel.values()) <= FLOW_BF16_REL, f"bf16 flow {rel} of float32's largest > {FLOW_BF16_REL}")
+        return rel
+
+    def solve_within(key, out, t, solver):
+        got, single = t["pose_graph"][solver].double(), ref_t["pose_graph"][solver].double()
+        exact = ref_t["pose_graph_float64"][solver]
+        err = {"vs_single": float((got - single).abs().max()), "vs_float64": float((got - exact).abs().max()),
+               "single_vs_float64": float((single - exact).abs().max())}
+        expect(err["vs_float64"] <= max(2.0 * err["single_vs_float64"], GRAPH_POSE_ATOL), f"{solver} poses {err}")
+        mse, want_mse = out["pose_graph"][solver]["mse_after"], ref["pose_graph"][solver]["mse_after"]
+        expect(abs(mse - want_mse) <= max(GRAPH_MSE_RTOL * want_mse, GRAPH_MSE_ATOL),
+               f"{solver} residual {mse} against {want_mse}")
+        return err
+
+    one_rank = torch.load(os.path.join(work, "nccl_rank0.pt"))  # the same code, one process
+    want = launches_of(attention_probs=PAR_PAIRS, corr_lookup=12 * PAR_PAIRS)
+    want2x = launches_of(flash_attend=12 * PAR_PAIRS, corr_lookup=12 * PAR_PAIRS)
+    for out in gloo + nccl:
+        key = f"{out['backend']}_rank{out['rank']}"
+        t = out.pop("tensors")
+        check(key, "kitti_launches", lambda: expect(out["kitti_f32"]["launches"] == want, out["kitti_f32"]["launches"]))
+        check(key, "kitti_f32", lambda: flow_within(t["kitti_f32"], ref_t["kitti_f32"], FLOW_F32_TOL))
+        steps = (("odometry", ODO_LOSS_RTOL, ODO_GRAD_REL, ODO_STATS_TOL),
+                 ("map", MAP_LOSS_RTOL, MAP_GRAD_REL, MAP_STATS_TOL),
+                 ("flow_train", FLOW_LOSS_RTOL, flow_rel, FLOW_STATS_TOL))
+        for name, loss_rtol, grad_rel, stats_tol in steps:
+            check(key, f"{name}_vs_one_process", lambda: _par_check_step(  # noqa: B023
+                name, t[name], ref_t[name], loss_rtol, grad_rel, stats_tol))
+            if out["backend"] == "gloo":
+                check(key, f"{name}_vs_one_rank", lambda: _par_check_step(  # noqa: B023
+                    name, t[name], one_rank[name], loss_rtol, grad_rel, stats_tol))
+        check(key, "flow_train_launches", lambda: expect(
+            out["flow_train_launches"] == launches_of(attention_probs=1, corr_lookup=3), out["flow_train_launches"]))
+        if out["backend"] != "gloo":
+            continue
+        check(key, "kitti_bf16_launches",
+              lambda: expect(out["kitti_bf16"]["launches"] == want, out["kitti_bf16"]["launches"]))
+        check(key, "kitti_bf16_rel", lambda: bf16_within(t["kitti_bf16"], ref_t["kitti_f32"]))
+        check(key, "2x_launches", lambda: expect(out["2x_bf16"]["launches"] == want2x, out["2x_bf16"]["launches"]))
+        check(key, "2x_bf16", lambda: flow_within(t["2x_bf16"][:1], ref_t["2x_bf16"][:1], PAR_FLOW_2X_TOL))
+        lo, hi = out["apply_probs"]["rows"]
+        check(key, "apply_probs_launches", lambda: expect(
+            out["apply_probs"]["launches"] == launches_of(apply_probs=1), out["apply_probs"]["launches"]))
+        check(key, "apply_probs", lambda: check_close("K4 band", t["apply_probs"], ref_t["apply_probs"][:, lo:hi],
+                                                      **K4_TOL))
+        timed = out["flow_train_timed"]
+        check(key, "flow_train_timed", lambda: expect(
+            timed["launches"] == launches_of(attention_probs=PAR_STEPS, corr_lookup=12 * PAR_STEPS)
+            and bool(np.isfinite(timed["losses"]).all()), timed))
+        rt, single = out["runtime"], gloo[0]["runtime_single"]
+        check(key, "runtime", lambda: expect(
+            rt["poses"] == single["poses"] and rt["nearest"] == single["nearest"] == rt["queries"],
+            f"poses or nearest keyframes {rt['nearest']} differ from one process's {single['nearest']}"))
+        checks[key]["runtime_refined_equal"] = rt["refined"] == single["refined"]
+        for solver in ("dense", "cg"):
+            check(key, f"pose_graph_{solver}", lambda: solve_within(key, out, t, solver))  # noqa: B023
+    if failures:
+        raise AssertionError("parallel: " + "\n".join(failures))
+    return {
+        "unsplit": ref, "gloo": gloo, "nccl": nccl, "checks": checks,
+        "note": "two ranks share one card's SMs (gloo): their ms are no speed-up figure",
+        "tolerance": {"flow_f32_px": FLOW_F32_TOL, "flow_bf16_rel_of_float32_max": FLOW_BF16_REL,
+                      "flow_2x_bf16_px_low": PAR_FLOW_2X_TOL, "apply_probs": K4_TOL,
+                      "odometry": {"loss_rtol": ODO_LOSS_RTOL, "grad_rel": ODO_GRAD_REL, "stats": ODO_STATS_TOL},
+                      "map": {"loss_rtol": MAP_LOSS_RTOL, "grad_rel": MAP_GRAD_REL, "stats": MAP_STATS_TOL},
+                      "flow_train": {"loss_rtol": FLOW_LOSS_RTOL, "grad_rel_of_group_max": flow_rel,
+                                     "stats": FLOW_STATS_TOL},
+                      "pose_graph": {"poses": "from the float64 solve at most twice the single float32 "
+                                               "solve's distance, or pose_atol", "pose_atol": GRAPH_POSE_ATOL,
+                                     "mse_rtol": GRAPH_MSE_RTOL},
+                      "runtime": "poses and nearest keyframes equal",
+                      "steps": "each rank against the one-rank run of the same code (NCCL) and against "
+                               "one process's plain step: gradients of their module group's largest"},
+        "seconds": time.perf_counter() - t_start,
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None, help="also write every phase's result to this JSON file")
@@ -2686,6 +3237,9 @@ def main(argv=None) -> int:
     emit("serving", card=card, **results["serving"])
     results["positional"] = positional(device, profile=args.profile)
     emit("positional", card=card, **results["positional"])
+    torch.cuda.empty_cache()
+    results["parallel"] = parallel_phase(device, os.path.join(work, "parallel"))
+    emit("parallel", card=card, **results["parallel"])
     kernels[0]["pass_ms"] = k1_pass_ms(device)
 
     # each kernel's launches from the run of the path that drives it
@@ -2715,6 +3269,14 @@ def main(argv=None) -> int:
             k["launches_serving"] = serve_launches[k["name"]]
         if k["name"] == "corr_lookup":
             k["launches_positional"] = results["positional"]["launches"]["corr_lookup"]
+    # each rank's launches in the parallel phase's gloo runs (PAR_PAIRS pairs)
+    par = results["parallel"]["gloo"]
+    par_launches = {"attention_probs": ("kitti_bf16", "attention_probs"), "corr_lookup": ("kitti_bf16", "corr_lookup"),
+                    "flash_attend": ("2x_bf16", "flash_attend"), "apply_probs": ("apply_probs", "apply_probs")}
+    for k in kernels:
+        if k["name"] in par_launches:
+            run, name = par_launches[k["name"]]
+            k["launches_parallel"] = [r[run]["launches"][name] for r in par]
     backward = {"attention_probs": "k1_backward", "corr_lookup": "k2_backward", "corr_dot": "k3_backward"}
     for k in kernels:
         if k["name"] in backward:
@@ -2727,6 +3289,7 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extras = ("op", "launches_loop_closure", "launches_flow_train", "launches_serving", "launches_positional",
+              "launches_parallel",
               "backward_ms", "backward_bound_ms",
               "backward_bound_by", "design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
               "max_abs_err_2x")

@@ -71,6 +71,40 @@ NEW_MODULES = (
 )
 
 
+PARALLEL_MODULES = (
+    "atdn_vslam_torch.parallel",
+    "atdn_vslam_torch.parallel.distributed",
+    "atdn_vslam_torch.parallel.mesh",
+    "atdn_vslam_torch.parallel.flow_sharding",
+)
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_import_no_jax(module):
+    """Each module of ``atdn_vslam_torch.parallel`` imports in a fresh
+    process without JAX, flax, the JAX package or ``tools``."""
+    assert module in {name for name, _ in _port_modules()}
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"importlib.import_module({module!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+
+
+def test_parallel_test_worker_imports_no_jax():
+    """The ranks of ``tests/test_torch_parallel.py`` import the port alone."""
+    tree = ast.parse((REPO / "tests" / "torch_parallel_worker.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""]
+            assert all(n.split(".")[0] not in FORBIDDEN for n in names), names
+
+
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_serving_and_utility_modules_are_covered(module):
     """The serving export and the remaining utilities are modules of the

@@ -117,7 +117,7 @@ def _fixed_map(monkeypatch, weights):
     def jax_train(model, cfg, images, log_fn=None, save_fn=None, mesh=None):
         return types.SimpleNamespace(params=map_vars["params"], batch_stats=map_vars["batch_stats"])
 
-    def port_train(model, cfg, images, log_fn=None, save_fn=None):
+    def port_train(model, cfg, images, log_fn=None, save_fn=None, mesh=None):
         model.load_state_dict(map_sd)
         return model.eval()
 

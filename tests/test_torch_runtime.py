@@ -216,7 +216,7 @@ def _fixed_map(monkeypatch, map_weights, saves):
         save_fn(state)
         return state
 
-    def port_train(model, cfg, images, log_fn=None, save_fn=None):
+    def port_train(model, cfg, images, log_fn=None, save_fn=None, mesh=None):
         model.load_state_dict(sd)
         save_fn(model)
         saves.append(len(images))
