@@ -1,5 +1,6 @@
-"""Learned convex upsampling of a low-resolution flow
-(ref: GMA/core/network.py:59-70)."""
+"""Flow upsampling: the learned convex combination
+(ref: GMA/core/network.py:59-70) and the bilinear fallback
+(ref: GMA/core/utils/utils.py:111-113)."""
 
 from __future__ import annotations
 
@@ -36,3 +37,16 @@ def _convex_upsample(flow: torch.Tensor, mask: torch.Tensor, factor: int) -> tor
     up = torch.einsum("bhwkm,bhwkc->bhwmc", mask, patches)
     up = up.reshape(b, h, w, factor, factor, 2)
     return up.permute(0, 1, 3, 2, 4, 5).reshape(b, h * factor, w * factor, 2)
+
+
+def upsample_flow_bilinear(flow: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """``factor`` times the (B, H, W, C) flow resized bilinearly to
+    (B, factor H, factor W, C), with half-pixel centres as
+    ``jax.image.resize`` (the reference's ``upflow8`` aligns corners).
+    Where a sample falls within half a pixel of the edge,
+    ``jax.image.resize`` renormalises its weights over the taps inside
+    and ``F.interpolate`` clamps the coordinate: both read the edge
+    pixel alone. The parity fallback for a net without ``up_mask``."""
+    b, h, w, _ = flow.shape
+    up = F.interpolate(flow.permute(0, 3, 1, 2), size=(h * factor, w * factor), mode="bilinear", align_corners=False)
+    return up.permute(0, 2, 3, 1) * factor

@@ -30,6 +30,16 @@ ranks before ``grad_norm`` and the step, so the step equals the
 single-process step on the global batch and the weights stay the same
 on every rank. No ``DistributedDataParallel``: its ``module.`` prefix
 would rename the ``state_dict`` keys.
+
+Tensor parallel (``init_state(..., mesh=, sharding=)``, JAX
+``make_train_step(state_sharding=...)``): the parameters that
+``parallel.mesh.model_parallel_sharding`` picks split over the mesh's
+"model" ranks (``parallel.tensor_parallel.shard_model``), and AdamW's
+moments of a split parameter hold the rank's rows only. The step
+averages the gradients over "data" as before, and the replicated ones
+also over "model"; ``grad_norm`` sums the split gradients' squares over
+"model". Checkpoints hold the whole state,
+gathered, and load onto split or unsplit ranks alike.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from atdn_vslam_torch.config import Config, LossConfig, TrainConfig
 from atdn_vslam_torch.models.blocks import Dropout, global_batch
 from atdn_vslam_torch.models.factory import init_params
 from atdn_vslam_torch.models.odometry import ATDNVO
+from atdn_vslam_torch.parallel import tensor_parallel
 from atdn_vslam_torch.parallel.distributed import all_reduce
 from atdn_vslam_torch.parallel.mesh import shard_batch
 from atdn_vslam_torch.training.losses import clvo_loss
@@ -76,12 +87,20 @@ def make_optimizer(model: torch.nn.Module, train_cfg: TrainConfig, steps_total: 
 
 
 def init_state(
-    model: ATDNVO, train_cfg: TrainConfig, steps_total: int, seed: int | None = None
+    model: ATDNVO, train_cfg: TrainConfig, steps_total: int, seed: int | None = None, mesh=None, sharding=None
 ) -> OdometryTrainState:
     """Seeded initial weights, a dropout generator on the model's device
-    and a fresh optimiser."""
+    and a fresh optimiser.
+
+    :param sharding: with ``mesh``, the split of
+        ``parallel.mesh.model_parallel_sharding(mesh, model)``: the whole
+        seeded model is cut to this rank's rows before the optimiser is
+        built over it (JAX ``state_sharding``).
+    """
     seed = train_cfg.seed if seed is None else seed
     init_params(model, seed)
+    if sharding is not None:
+        tensor_parallel.shard_model(model, mesh, sharding)
     device = next(model.parameters()).device
     generator = torch.Generator(device).manual_seed(seed)
     for m in model.modules():
@@ -119,19 +138,41 @@ def train_step(
             delta=loss_cfg.delta, khi=loss_cfg.khi,
         )
         loss.backward()
-    params = [p for p in model.parameters() if p.grad is not None]
+    named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
     if group is not None:  # the mean of the slices' means: the global batch's loss and gradients
-        *reduced, loss = all_reduce([p.grad for p in params] + [loss.detach()[None]], group, mean=True)
-        for p, g in zip(params, reduced):
+        *reduced, loss = all_reduce([p.grad for _, p in named] + [loss.detach()[None]], group, mean=True)
+        for (_, p), g in zip(named, reduced):
             p.grad = g
         loss = loss[0]
-    grads = [p.grad for p in params]
-    grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    split = tensor_parallel.model_splits(model)
+    if split:
+        if mesh is None:
+            raise ValueError('a model split over "model" needs its mesh')
+        # Each model rank computes the replicated gradients itself, and on
+        # the card cuDNN may round them otherwise on each (its algorithms
+        # and atomics): their mean keeps the replicated parameters equal.
+        whole = [p for n, p in named if n not in split]
+        for p, g in zip(whole, all_reduce([p.grad for p in whole], mesh.model_group, mean=True)):
+            p.grad = g
+    grad_norm = _grad_norm(named, split, mesh)
     state.optimizer.step()
     state.scheduler.step()
     metrics = {"loss": loss.detach(), "grad_norm": grad_norm, "step": state.step}
     state.step += 1
     return metrics
+
+
+def _grad_norm(named, split, mesh) -> torch.Tensor:
+    """The global norm of the whole gradients: a split gradient's squares
+    summed over the model ranks, a replicated one's counted once."""
+    if not split:
+        return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(p.grad) for _, p in named]))
+
+    def squares(is_split: bool) -> torch.Tensor:
+        return torch.stack([p.grad.square().sum() for n, p in named if (n in split) == is_split]).sum()
+
+    (split_squares,) = all_reduce([squares(True)[None]], mesh.model_group)
+    return torch.sqrt(squares(False) + split_squares[0])
 
 
 def train_epoch(
@@ -170,14 +211,22 @@ def checkpoint_path(config: Config, stage: int) -> str:
 def save_checkpoint(config: Config, stage: int, state: OdometryTrainState) -> str:
     """Write model, optimiser, schedule, step and stage to
     :func:`checkpoint_path` atomically (a ``.tmp`` file, then
-    ``os.replace``); returns the path."""
+    ``os.replace``); returns the path. A model split over "model" is
+    gathered whole, its moments too, so that one process can load the
+    file: every model rank calls this and the first one writes."""
     path = checkpoint_path(config, stage)
+    model, optimizer = state.model.state_dict(), state.optimizer.state_dict()
+    if tensor_parallel.model_splits(state.model):
+        model = tensor_parallel.gathered_state_dict(state.model)
+        optimizer = tensor_parallel.gathered_optimizer_state(state.optimizer, state.model)
+        if torch.distributed.get_rank(tensor_parallel.model_group(state.model)) != 0:
+            return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(
         {
-            "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
-            "optimizer": state.optimizer.state_dict(),
+            "model": {k: v.detach().cpu() for k, v in model.items()},
+            "optimizer": optimizer,
             "scheduler": state.scheduler.state_dict(),
             "step": state.step,
             "stage": stage,
@@ -198,10 +247,11 @@ def read_checkpoint(config: Config, stage: int) -> dict:
 
 
 def load_checkpoint(config: Config, stage: int, state: OdometryTrainState) -> OdometryTrainState:
-    """Restore a stage's checkpoint into ``state`` (in place; returned)."""
+    """Restore a stage's checkpoint into ``state`` (in place; returned);
+    a split model takes its rows of the whole state."""
     ckpt = read_checkpoint(config, stage)
-    state.model.load_state_dict(ckpt["model"])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    tensor_parallel.load_state_dict(state.model, ckpt["model"])
+    state.optimizer.load_state_dict(tensor_parallel.shard_optimizer_state(ckpt["optimizer"], state.model))
     state.scheduler.load_state_dict(ckpt["scheduler"])
     state.step = int(ckpt["step"])
     return state
@@ -213,5 +263,5 @@ def warm_start(config: Config, state: OdometryTrainState) -> OdometryTrainState:
     optimiser (ref: train_odometry.py:94-97 loads the weights only)."""
     stage = config.train.stage
     if stage > 1:
-        state.model.load_state_dict(read_checkpoint(config, stage - 1)["model"])
+        tensor_parallel.load_state_dict(state.model, read_checkpoint(config, stage - 1)["model"])
     return state

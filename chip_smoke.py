@@ -111,10 +111,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
       the whole batch and against one rank of the same code), the
       ``FLOW_TRAIN`` steps (batch 6 -> 3 per rank) timed,
       ``SlamRuntime(mesh=...)`` (poses and nearest keyframes equal to one
-      process's) and the edge-split solve at 1000 poses; then one rank
-      runs the KITTI pair and the three steps through NCCL. Each rank's
-      ms, peak memory and launches; two ranks share the card's SMs, so
-      their ms are no speed-up figure;
+      process's) and the edge-split solve at 1000 poses, and on the 1 x 2
+      mesh the odometry step with the parameters the JAX rule
+      (``model_parallel_sharding``) picks split over the two ranks (each
+      with the whole batch of 24): its gathered gradients against one
+      process's step, each rank's parameter and moment bytes against the
+      whole model's, the replicated parameters equal on both ranks after
+      the timed steps (the ``parallel_split`` line); then one rank runs
+      the KITTI pair and the three steps through NCCL. Each rank's ms,
+      peak memory and launches; two ranks share the card's SMs, so their
+      ms are no speed-up figure;
   20. the ``kernels`` line (each kernel with its op, ``atdn::<name>``),
       the card, and last the ``ok`` line.
 
@@ -2674,20 +2680,27 @@ def _par_probs(device, hw8=(47, 154), d=128, seed=30):
     return probs, torch.randn((1, n, d), generator=g, device=device).to(torch.bfloat16)
 
 
-def _par_odometry(device, mesh, steps: int = 0, seed: int = 17) -> tuple[dict, dict]:
+def _par_odometry(device, mesh, steps: int = 0, seed: int = 17, split: bool = False) -> tuple[dict, dict]:
     """One odometry train step at ``configs/kitti.yaml`` (batch 24 x 6
     flows at 376x1232, float32) from seeded weights on the odometry_train
     phase's synthetic batch, split over the mesh's "data" ranks with a
-    mesh; then ``steps`` more steps timed."""
+    mesh; then ``steps`` more steps timed. With ``split`` the parameters
+    of the JAX rule split over the mesh's "model" ranks: the gradients
+    are gathered whole, and the split, the rank's parameter and moment
+    bytes and, after the timed steps, the replicated parameters come
+    back too."""
     from atdn_vslam_torch.config import load_config
     from atdn_vslam_torch.models.factory import build_odometry_model
-    from atdn_vslam_torch.parallel import shard_batch
+    from atdn_vslam_torch.parallel import model_parallel_sharding, shard_batch, tensor_parallel
     from atdn_vslam_torch.training import odometry as train
 
     cfg = load_config(os.path.join(REPO, "configs", "kitti.yaml"))
     tc = cfg.train
     model = build_odometry_model(cfg, device, image_hw=FULL_HW)
-    state = train.init_state(model, tc, 1 + steps, seed=seed)
+    sharding = model_parallel_sharding(mesh, model) if split else None
+    if split:
+        torch.cuda.reset_peak_memory_stats(device)
+    state = train.init_state(model, tc, 1 + steps, seed=seed, mesh=mesh, sharding=sharding)
     g = torch.Generator(device).manual_seed(seed)
     shape = (tc.batch_size, tc.sequence_length)
     batch = (torch.randn((*shape, *FULL_HW, 2), generator=g, device=device) * 20.0,
@@ -2697,13 +2710,35 @@ def _par_odometry(device, mesh, steps: int = 0, seed: int = 17) -> tuple[dict, d
         batch = shard_batch(mesh, batch)
     metrics = train.train_step(state, *batch, cfg.loss, mesh)
     result = _par_step_tensors(model, {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"]})
+    summary = {"batch_per_rank": int(batch[0].shape[0])}
+    if split:
+        splits = tensor_parallel.model_splits(model)
+        local = dict(model.named_parameters())
+        whole = tensor_parallel.gather_split(model, {n: p.grad for n, p in local.items()})
+        result["grads"] = {n: g.detach().cpu() for n, g in whole.items()}
+        moments = {n: sum(v.numel() * v.element_size() for k, v in state.optimizer.state[p].items()
+                          if k in ("exp_avg", "exp_avg_sq")) for n, p in local.items()}
+        summary.update(
+            split=sorted(splits),
+            split_elements=sum(whole[n].numel() for n in splits),
+            param_bytes=sum(p.numel() * p.element_size() for p in local.values()),
+            whole_param_bytes=sum(g.numel() * g.element_size() for g in whole.values()),
+            moment_bytes=sum(moments.values()),
+            # both moments of a split parameter at half size: one whole tensor's bytes
+            moments_half={n: moments[n] == whole[n].numel() * whole[n].element_size() for n in splits},
+        )
+        summary["whole_moment_bytes"] = 2 * summary["whole_param_bytes"]
     step_ms = []
     for _ in range(steps):
         _sync(device)
         t0 = time.perf_counter()
         float(train.train_step(state, *batch, cfg.loss, mesh)["loss"])
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    return {"batch_per_rank": int(batch[0].shape[0]), "step_ms": step_ms}, result
+    if split:
+        splits = tensor_parallel.model_splits(model)
+        result["replicated"] = {n: p.detach().cpu() for n, p in model.named_parameters() if n not in splits}
+        summary["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    return {**summary, "step_ms": step_ms}, result
 
 
 def _par_step_tensors(model, metrics: dict) -> dict:
@@ -2898,6 +2933,9 @@ def parallel_worker(rank: int, world: int, port: int, work: str, backend: str) -
     tensors["flow_train"] = _par_flow_train(device, batch)
     out["flow_train_launches"] = tensors["flow_train"].pop("launches")
     if backend == "gloo":
+        torch.cuda.empty_cache()
+        out["odometry_split"], tensors["odometry_split"] = _par_odometry(device, rows, steps=PAR_STEPS, split=True)
+        torch.cuda.empty_cache()
         out["kitti_bf16"], tensors["kitti_bf16"] = _par_flow_run(device, FULL_HW, True, rows)
         out["2x_bf16"], tensors["2x_bf16"] = _par_flow_run(device, HW_2X, True, rows)
         torch.cuda.empty_cache()
@@ -3077,6 +3115,7 @@ def parallel_phase(device, work: str) -> dict:
         return err
 
     one_rank = torch.load(os.path.join(work, "nccl_rank0.pt"))  # the same code, one process
+    gloo_t = [out["tensors"] for out in gloo]
     want = launches_of(attention_probs=PAR_PAIRS, corr_lookup=12 * PAR_PAIRS)
     want2x = launches_of(flash_attend=12 * PAR_PAIRS, corr_lookup=12 * PAR_PAIRS)
     for out in gloo + nccl:
@@ -3097,6 +3136,15 @@ def parallel_phase(device, work: str) -> dict:
             out["flow_train_launches"] == launches_of(attention_probs=1, corr_lookup=3), out["flow_train_launches"]))
         if out["backend"] != "gloo":
             continue
+        split = out["odometry_split"]
+        check(key, "odometry_split_vs_one_process", lambda: _par_check_step(
+            "odometry_split", t["odometry_split"], ref_t["odometry"], ODO_LOSS_RTOL, ODO_GRAD_REL, ODO_STATS_TOL))
+        check(key, "odometry_split_layout", lambda: expect(
+            split["split"] and all(split["moments_half"].values()), f"split {split['split']}, moments "
+            f"{split['moments_half']}"))
+        check(key, "odometry_split_replicated_equal", lambda: expect(all(
+            torch.equal(v, gloo_t[0]["odometry_split"]["replicated"][n])
+            for n, v in t["odometry_split"]["replicated"].items()), "replicated parameters differ between the ranks"))
         check(key, "kitti_bf16_launches",
               lambda: expect(out["kitti_bf16"]["launches"] == want, out["kitti_bf16"]["launches"]))
         check(key, "kitti_bf16_rel", lambda: bf16_within(t["kitti_bf16"], ref_t["kitti_f32"]))
@@ -3120,7 +3168,13 @@ def parallel_phase(device, work: str) -> dict:
             check(key, f"pose_graph_{solver}", lambda: solve_within(key, out, t, solver))  # noqa: B023
     if failures:
         raise AssertionError("parallel: " + "\n".join(failures))
+    split = {k: v for k, v in gloo[0]["odometry_split"].items() if k not in ("moments_half", "step_ms")}
+    split["ranks"] = [{k: out["odometry_split"][k] for k in ("param_bytes", "moment_bytes", "step_ms", "peak_mem_gib")}
+                      for out in gloo]
+    split["data_parallel_step_ms"] = [out["odometry"]["step_ms"] for out in gloo]  # 2 x 1 mesh, 12 a rank
+    split["checks"] = {key: {k: v for k, v in c.items() if k.startswith("odometry_split")} for key, c in checks.items()}
     return {
+        "split": split,
         "unsplit": ref, "gloo": gloo, "nccl": nccl, "checks": checks,
         "note": "two ranks share one card's SMs (gloo): their ms are no speed-up figure",
         "tolerance": {"flow_f32_px": FLOW_F32_TOL, "flow_bf16_rel_of_float32_max": FLOW_BF16_REL,
@@ -3240,6 +3294,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     results["parallel"] = parallel_phase(device, os.path.join(work, "parallel"))
     emit("parallel", card=card, **results["parallel"])
+    emit("parallel_split", card=card, **results["parallel"]["split"])
     kernels[0]["pass_ms"] = k1_pass_ms(device)
 
     # each kernel's launches from the run of the path that drives it

@@ -76,6 +76,7 @@ PARALLEL_MODULES = (
     "atdn_vslam_torch.parallel.distributed",
     "atdn_vslam_torch.parallel.mesh",
     "atdn_vslam_torch.parallel.flow_sharding",
+    "atdn_vslam_torch.parallel.tensor_parallel",
 )
 
 

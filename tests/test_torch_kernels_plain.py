@@ -1,8 +1,10 @@
 """The plain PyTorch versions of the port's kernels against the JAX
 package, on the CPU: K1 (attention probabilities) against the Pallas
 ``flash_probs_spatial`` in interpret mode and the XLA path, K2 (the
-correlation-window lookup) against ``lookup_corr_pyramid`` and the
-Pallas ``lookup_corr_pyramid_pallas`` in interpret mode, plus the
+correlation-window lookup) against ``lookup_corr_pyramid``, its two
+other XLA lowerings ``lookup_corr_pyramid_dynslice`` and
+``lookup_corr_pyramid_gather``, and the Pallas
+``lookup_corr_pyramid_pallas`` in interpret mode, plus the
 pyramid build and the P @ V read. Inputs are made with numpy from a
 seed; everything is float32.
 """
@@ -154,6 +156,35 @@ def test_corr_lookup_plain_matches_jax_lookups(radius):
     np.testing.assert_allclose(got[~below][:, perm], pallas[~below], rtol=1e-4, atol=1e-4)
     # the far-away query reads only zero padding
     assert float(np.abs(got[-1, -1, -1]).max()) == 0.0
+
+
+@pytest.mark.parametrize("radius", [4, 2])
+@pytest.mark.parametrize("lowering", ["dynslice", "gather"])
+def test_corr_lookup_plain_matches_jax_other_lowerings(lowering, radius):
+    """K2's function as the JAX package's two other XLA lowerings compute
+    it, row slices with a vertical lerp and the four-tap gather: 1e-5
+    after the dx-major to dy-major permutation, on queries partly and
+    wholly outside and far away. 8 x 12 features keep every level's
+    rows and columns (the gather's reshape refuses an empty level)."""
+    pyr, coords = _pyramid_and_coords(4, 2, 8, 12, 16, 4)
+    port_pyr = [torch.from_numpy(np.array(p)[..., 0]) for p in pyr]
+    got = lookup_corr_pyramid_plain(port_pyr, torch.from_numpy(coords), radius).numpy()
+    lookup = {"dynslice": jcorr.lookup_corr_pyramid_dynslice, "gather": jcorr.lookup_corr_pyramid_gather}[lowering]
+    want = np.asarray(lookup(pyr, jnp.asarray(coords), radius))[..., np.argsort(corr_window_perm(4, radius))]
+    assert want.shape == got.shape
+    got, want = (x.reshape(*coords.shape[:-1], 4, -1) for x in (got, want))
+    past = np.zeros(got.shape[:-1], bool)  # (query, level) blocks
+    if lowering == "dynslice":
+        # The row-slice lowering clamps a window's first row to the
+        # level's last row, as the Pallas kernel does (the test above):
+        # a window wholly past the last row extrapolates from that row
+        # where the reference reads zeros (ROADMAP Queue 3). Such windows
+        # are left out here; the port reads zeros there.
+        for level, p in enumerate(pyr):
+            past[..., level] = np.floor(coords[..., 1] / 2**level - radius) > p.shape[2] - 1
+        assert past.any() == (radius == 2)
+        assert float(np.abs(got[past]).max(initial=0.0)) == 0.0
+    np.testing.assert_allclose(got[~past], want[~past], rtol=1e-5, atol=1e-5)
 
 
 def test_corr_lookup_wrapper_on_cpu_is_plain_and_handles_tiny_levels():

@@ -1,6 +1,7 @@
 """The port's plain tensor ops against the JAX package on the CPU:
 coordinate grids, zero-padded bilinear sampling, the forward warp of a
-flow field, convex upsampling, input padding and the SE(3) helpers.
+flow field, convex and bilinear upsampling, input padding and the SE(3)
+helpers.
 Inputs are made with numpy from a seed, float32. Both sides compute
 the same float32 arithmetic in another order, so values agree to 1e-5
 (1e-6 where no sum is involved) and integer-valued results exactly.
@@ -15,10 +16,12 @@ from atdn_vslam_tpu.geometry import se3 as jse3
 from atdn_vslam_tpu.ops import bilinear as jbil
 from atdn_vslam_tpu.ops.padding import InputPadder as JInputPadder
 from atdn_vslam_tpu.ops.upsample import convex_upsample as jconvex_upsample
+from atdn_vslam_tpu.ops.upsample import upsample_flow_bilinear as jupsample_flow_bilinear
 
 from atdn_vslam_torch.geometry import se3
 from atdn_vslam_torch.ops.bilinear import bilinear_sample, coords_grid, forward_warp_flow
 from atdn_vslam_torch.ops.padding import InputPadder
+from atdn_vslam_torch.ops import upsample_flow_bilinear
 from atdn_vslam_torch.ops.upsample import convex_upsample
 
 torch.set_num_threads(1)
@@ -71,6 +74,18 @@ def test_convex_upsample_matches_jax():
     got = convex_upsample(torch.from_numpy(flow), torch.from_numpy(mask))
     ref = np.asarray(jconvex_upsample(jnp.asarray(flow), jnp.asarray(mask)))
     assert got.shape == (2, 24, 40, 2)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("factor", [4, 8])
+def test_upsample_flow_bilinear_matches_jax(factor):
+    """Half-pixel bilinear resize times the factor: ``F.interpolate``'s
+    clamp at the edges and ``jax.image.resize``'s renormalised weights
+    give the same edge samples when upsampling, 1e-5."""
+    flow = np.random.default_rng(9).normal(scale=3.0, size=(2, 5, 7, 2)).astype(np.float32)
+    got = upsample_flow_bilinear(torch.from_numpy(flow), factor)
+    ref = np.asarray(jupsample_flow_bilinear(jnp.asarray(flow), factor))
+    assert got.shape == ref.shape == (2, 5 * factor, 7 * factor, 2)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 

@@ -5,7 +5,8 @@ One spawn of two processes joined in a gloo group
 every case of the module: the row-split flow net and the three row-split
 attention wrappers over a 1 x 2 mesh, the data-parallel train steps, the
 sharded keyframe search, the edge-split pose-graph solve and the runtime
-over a 2 x 1 mesh. Each rank's result is held against the port's own
+over a 2 x 1 mesh, and the odometry step with its parameters split over
+the 1 x 2 mesh's "model" ranks (JAX ``model_parallel_sharding``). Each rank's result is held against the port's own
 single-process result and, where the JAX package has the function,
 against its sharded counterpart on a 2-device CPU mesh (``conftest.py``
 gives JAX 8 virtual devices), with the tolerance beside each test.
@@ -43,6 +44,7 @@ from atdn_vslam_tpu.models.mapping import MappingVAE as JMappingVAE
 from atdn_vslam_tpu.models.odometry import ATDNVO as JATDNVO
 from atdn_vslam_tpu.ops import attention as jattention
 from atdn_vslam_tpu.parallel import make_mesh as jmake_mesh
+from atdn_vslam_tpu.parallel.mesh import model_parallel_sharding as jmodel_parallel_sharding
 from atdn_vslam_tpu.parallel import shard_batch as jshard_batch
 from atdn_vslam_tpu.parallel import sharded_flow_infer as jsharded_flow_infer
 from atdn_vslam_tpu.slam.keyframes import nearest_sharded as jnearest_sharded
@@ -66,7 +68,7 @@ from atdn_vslam_torch.models.flow.network import RAFTGMA
 from atdn_vslam_torch.models.mapping import MappingVAE
 from atdn_vslam_torch.models.odometry import ATDNVO
 from atdn_vslam_torch.ops import attention
-from atdn_vslam_torch.parallel import Mesh, distributed, make_mesh, shard_batch
+from atdn_vslam_torch.parallel import Mesh, distributed, make_mesh, shard_batch, tensor_parallel
 from atdn_vslam_torch.slam import SlamRuntime
 from atdn_vslam_torch.training import flow, mapping, odometry
 
@@ -95,6 +97,11 @@ TRAIN_HW, TRAIN_B, TRAIN_ITERS, GAMMA = (64, 96), 2, 2, 0.8
 LR, STEPS_TOTAL, WD, CLIP = 1e-3, 10, 1e-5, 1.0
 ODO_HW, ODO_B, ODO_T = (72, 96), 2, 3
 MAP_HW = (96, 192)
+SPLIT_STEPS = 3  # the split step's steps, after which the replicated parameters are compared
+# the parameters the JAX rule splits at 72x96 (the encoder's 16 x 512 is too small)
+SPLIT_72X96 = {"lstm1.weight_ih", "lstm1.weight_hh", "lstm2.weight_ih", "lstm2.weight_hh",
+               "lstm_linear.linear.weight", "rotation_regressor.0.linear.weight",
+               "translation_regressor.0.linear.weight"}
 POSE_ATOL = 1e-4  # tests/test_torch_pose_graph.py; the JAX sharded test's 1e-4
 POSE_SPLIT_ATOL = 1e-5  # the port's own solve, edge sums added in another order
 RUNTIME_HW = (96, 192)
@@ -237,12 +244,28 @@ def _runtime_case(work):
             "queries": [frames[1], frames[3]], "dir": str(work)}
 
 
+def _single_checkpoint(case: dict, directory: str) -> None:
+    """One float64 step of one process from the case's weights, saved as
+    stage 1 in ``directory``: the checkpoint the split ranks load."""
+    model = _as_float64(ATDNVO(case["hw"]))
+    model.load_state_dict(case["state_dict"])
+    st = odometry.OdometryTrainState(model, *odometry.make_optimizer(model, case["train_cfg"], case["steps"]))
+    odometry.train_step(st, *(x.double() for x in case["batch"]), LossConfig(alpha=case["alpha"]))
+    odometry.save_checkpoint(Config(checkpoint_dir=directory), 1, st)
+
+
 @pytest.fixture(scope="module")
 def cases(tmp_path_factory):
     work = tmp_path_factory.mktemp("parallel")
     flow_vars, im1, im2 = _flow_case()
     odo_state, odo_batch = _odometry_case()
     odo_vars = _np32({"params": odo_state.params, "batch_stats": odo_state.batch_stats})
+    odo_case = {"state_dict": atdnvo_state_dict_from_jax(odo_vars, ODO_HW), "hw": ODO_HW,
+                "train_cfg": TrainConfig(), "alpha": 0.5,
+                "batch": tuple(torch.from_numpy(np.asarray(x)) for x in odo_batch)}
+    split_case = {**odo_case, "steps": SPLIT_STEPS, "checkpoint_dir": str(work / "ckpt"),
+                  "single_checkpoint_dir": str(work / "ckpt" / "single")}
+    _single_checkpoint(split_case, split_case["single_checkpoint_dir"])
     map_state, map_images, map_key = _map_case()
     map_vars = _np32({"params": map_state.params, "batch_stats": map_state.batch_stats})
     train_vars, train_data = _flow_train_case(flow_vars)
@@ -255,8 +278,8 @@ def cases(tmp_path_factory):
         "flow": {"state_dict": gma_state_dict_from_jax(flow_vars), "iters": FLOW_ITERS, "im1": t(im1),
                  "im2": t(im2), "flash_tokens": FLASH_TOKENS},
         "attention": {k: (t(v) if isinstance(v, np.ndarray) else v) for k, v in _attention_case().items()},
-        "odometry": {"state_dict": atdnvo_state_dict_from_jax(odo_vars, ODO_HW), "hw": ODO_HW,
-                     "train_cfg": TrainConfig(), "alpha": 0.5, "batch": tuple(t(x) for x in odo_batch)},
+        "odometry": odo_case,
+        "split_odometry": split_case,
         "mapping": {"state_dict": mapping_state_dict_from_jax(map_vars), "images": t(map_images),
                     "factors": _map_factors(map_key, 2)},
         "flow_train": {"state_dict": gma_state_dict_from_jax(train_vars), "iters": TRAIN_ITERS,
@@ -272,18 +295,21 @@ def cases(tmp_path_factory):
 
 
 class Ranks:
-    """The two worker processes; :meth:`get` waits for their results."""
+    """The worker processes (``world`` of them, the worker's arguments
+    after the work directory in ``args``); :meth:`get` waits for their
+    results."""
 
-    def __init__(self, work, port):
+    def __init__(self, work, port, world: int = WORLD, args: tuple = ()):
         torch.save(port, work / "inputs.pt")
         addr = str(_free_port())
-        self.work = work
-        self.logs = [work / f"rank{r}.log" for r in range(WORLD)]
+        self.work, self.world = work, world
+        self.logs = [work / f"rank{r}.log" for r in range(world)]
         self.procs = []
         for r, log in enumerate(self.logs):
             with open(log, "w") as f:
                 self.procs.append(subprocess.Popen(
-                    [sys.executable, WORKER, str(r), str(WORLD), addr, str(work)], stdout=f, stderr=subprocess.STDOUT
+                    [sys.executable, WORKER, str(r), str(world), addr, str(work), *args], stdout=f,
+                    stderr=subprocess.STDOUT,
                 ))
         self.results = None
 
@@ -292,7 +318,7 @@ class Ranks:
             for r, p in enumerate(self.procs):
                 p.wait(timeout=600)
                 assert p.returncode == 0, f"rank {r} failed:\n{self.logs[r].read_text()[-4000:]}"
-            self.results = [torch.load(self.work / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+            self.results = [torch.load(self.work / f"rank{r}.pt", weights_only=False) for r in range(self.world)]
         return self.results
 
     def close(self):
@@ -499,18 +525,22 @@ def _as_float64(model):
     return model
 
 
-def test_data_parallel_odometry_step_matches(cases, ranks, monkeypatch):
-    """Two ranks of batch 1 each against one process on batch 2 (float64:
-    loss, every gradient within 1e-6 of its largest entry, batch
-    statistics) and against the JAX package's step on a 2 x 1 mesh
-    (float32, the single-process bounds)."""
-    _, port, jax_side = cases
-    c = port["odometry"]
-    state, batch = jax_side["odometry"]
-    monkeypatch.setattr(jodometry, "make_optimizer", lambda cfg, steps_total: _keep_grads())
+def jax_odometry_step(state, batch, jmesh, split: bool = False):
+    """The JAX package's odometry step on ``jmesh`` (with ``split``, its
+    state placed by ``model_parallel_sharding``, at least one leaf over
+    "model") whose optimizer hands back the gradients (call it with
+    ``jodometry.make_optimizer`` patched to :func:`_keep_grads`): the
+    metrics, and the gradients and new batch statistics as port
+    ``state_dict``s."""
     jtc = JTrainConfig(batch_size=ODO_B, sequence_length=ODO_T)
-    jmesh = _jmesh(WORLD, 1)
-    step = jodometry.make_train_step(JATDNVO(), jtc, JLossConfig(alpha=0.5), 1, mesh=jmesh, donate=False)
+    sharding = None
+    if split:
+        state = jax.device_get(state.replace(opt_state=_keep_grads().init(state.params)))
+        sharding = jmodel_parallel_sharding(jmesh, state)
+        assert any("model" in str(s.spec) for s in jax.tree.leaves(sharding))
+        state = jax.device_put(state, sharding)
+    step = jodometry.make_train_step(JATDNVO(), jtc, JLossConfig(alpha=0.5), 1, mesh=jmesh, donate=False,
+                                     state_sharding=sharding)
     new_state, jmetrics = step(state, *jshard_batch(jmesh, tuple(jnp.asarray(x) for x in batch)))
     jgrads = atdnvo_state_dict_from_jax(
         {"params": _np32(new_state.opt_state), "batch_stats": _np32(state.batch_stats)}, ODO_HW
@@ -518,25 +548,138 @@ def test_data_parallel_odometry_step_matches(cases, ranks, monkeypatch):
     jstats = atdnvo_state_dict_from_jax(
         _np32({"params": state.params, "batch_stats": new_state.batch_stats}), ODO_HW
     )
+    return jmetrics, jgrads, jstats
 
-    model = _as_float64(ATDNVO(ODO_HW))
-    model.load_state_dict(c["state_dict"])
-    opt, sched = odometry.make_optimizer(model, c["train_cfg"], 1)
+
+def single_odometry_step64(case: dict) -> dict:
+    """The port's float64 step of one process on the case's whole batch."""
+    model = _as_float64(ATDNVO(case["hw"]))
+    model.load_state_dict(case["state_dict"])
+    opt, sched = odometry.make_optimizer(model, case["train_cfg"], 1)
     st = odometry.OdometryTrainState(model, opt, sched)
-    metrics = odometry.train_step(st, *(x.double() for x in c["batch"]), LossConfig(alpha=0.5))
-    single = _port_step_result(model, metrics)
+    metrics = odometry.train_step(st, *(x.double() for x in case["batch"]), LossConfig(alpha=case["alpha"]))
+    return _port_step_result(model, metrics)
+
+
+def check_step64(got: dict, single: dict) -> None:
+    """A float64 step of the ranks against one process's: the loss, the
+    global gradient norm, every gradient within 1e-6 of its largest
+    entry, the batch statistics."""
+    np.testing.assert_allclose(float(got["metrics"]["loss"]), float(single["metrics"]["loss"]), rtol=LOSS64_RTOL)
+    np.testing.assert_allclose(float(got["metrics"]["grad_norm"]), float(single["metrics"]["grad_norm"]),
+                               rtol=GRAD64_REL)
+    assert got["grads"].keys() == single["grads"].keys()
+    _check_grads(got["grads"], single["grads"], GRAD64_REL)
+    _check_stats(got["stats"], single["stats"], STATS64_TOL)
+
+
+def check_step32_jax(got: dict, jmetrics, jgrads: dict, jstats: dict) -> None:
+    """A float32 step of the ranks against the JAX package's: the loss and
+    every gradient at the single-process bounds (flax's LSTM has one bias
+    per gate where the port keeps two equal ones), the batch statistics."""
+    np.testing.assert_allclose(float(got["metrics"]["loss"]), float(jmetrics["loss"]), rtol=LOSS32_RTOL)
+    _check_grads(got["grads"], jgrads, GRAD32_REL, skip={n for n in got["grads"] if n.endswith("bias_ih")})
+    _check_stats(got["stats"], {k: jstats[k] for k in got["stats"]}, STATS32_TOL)
+
+
+def test_data_parallel_odometry_step_matches(cases, ranks, monkeypatch):
+    """Two ranks of batch 1 each against one process on batch 2 (float64:
+    loss, every gradient within 1e-6 of its largest entry, batch
+    statistics) and against the JAX package's step on a 2 x 1 mesh
+    (float32, the single-process bounds)."""
+    _, port, jax_side = cases
+    monkeypatch.setattr(jodometry, "make_optimizer", lambda cfg, steps_total: _keep_grads())
+    jmetrics, jgrads, jstats = jax_odometry_step(*jax_side["odometry"], _jmesh(WORLD, 1))
+    single = single_odometry_step64(port["odometry"])
     for out in ranks.get():
         got = out["odometry"]
-        g64, g32 = got[str(torch.float64)], got[str(torch.float32)]
-        np.testing.assert_allclose(float(g64["metrics"]["loss"]), float(single["metrics"]["loss"]), rtol=LOSS64_RTOL)
-        np.testing.assert_allclose(float(g64["metrics"]["grad_norm"]), float(single["metrics"]["grad_norm"]),
-                                   rtol=GRAD64_REL)
-        _check_grads(g64["grads"], single["grads"], GRAD64_REL)
-        _check_stats(g64["stats"], single["stats"], STATS64_TOL)
-        np.testing.assert_allclose(float(g32["metrics"]["loss"]), float(jmetrics["loss"]), rtol=LOSS32_RTOL)
-        # flax's LSTM has one bias per gate where the port keeps two equal ones
-        _check_grads(g32["grads"], jgrads, GRAD32_REL, skip={n for n in g32["grads"] if n.endswith("bias_ih")})
-        _check_stats(g32["stats"], {k: jstats[k] for k in g32["stats"]}, STATS32_TOL)
+        check_step64(got[str(torch.float64)], single)
+        check_step32_jax(got[str(torch.float32)], jmetrics, jgrads, jstats)
+
+
+# ----------------------------------------------------------------------
+# The tensor-parallel split over the 1 x 2 mesh's "model" ranks
+# ----------------------------------------------------------------------
+
+
+def test_split_odometry_step_matches_one_process(cases, ranks):
+    """The rule's parameters split over two model ranks, each with the
+    whole batch: float64 against one process (the data-parallel bounds,
+    on the gathered gradients)."""
+    _, port, _ = cases
+    single = single_odometry_step64(port["odometry"])
+    for out in ranks.get():
+        check_step64(out["split_odometry"][str(torch.float64)], single)
+
+
+def test_split_odometry_step_matches_jax_state_sharding(cases, ranks, monkeypatch):
+    """float32 against the JAX package's step on a 1 x 2 mesh with the
+    state placed by its ``model_parallel_sharding``."""
+    _, _, jax_side = cases
+    monkeypatch.setattr(jodometry, "make_optimizer", lambda cfg, steps_total: _keep_grads())
+    jmetrics, jgrads, jstats = jax_odometry_step(*jax_side["odometry"], _jmesh(1, WORLD), split=True)
+    for out in ranks.get():
+        check_step32_jax(out["split_odometry"][str(torch.float32)], jmetrics, jgrads, jstats)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_split_parameters_and_moments_are_half(dtype, ranks):
+    """On each rank the rule split the LSTM, the LSTM link's and the
+    heads' first weights (the 128 x 512 heads at exactly 65,536
+    elements); each split parameter and both its AdamW moments hold half
+    of the whole tensor."""
+    for out in ranks.get():
+        got = out["split_odometry"][str(dtype)]
+        assert {n for n, v in got["sharding"].items() if v} == SPLIT_72X96 == set(got["split"])
+        for name, (local, whole, exp_avg, exp_avg_sq) in got["split"].items():
+            assert 2 * local == whole and exp_avg == exp_avg_sq == local, name
+
+
+def test_split_replicated_parameters_stay_bitwise_equal(ranks):
+    """After SPLIT_STEPS float32 steps every replicated parameter is
+    bitwise equal on the two model ranks."""
+    a, b = (out["split_odometry"][str(torch.float32)]["replicated"] for out in ranks.get())
+    assert a.keys() == b.keys() and len(a) > 0 and not (a.keys() & SPLIT_72X96)
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+def test_split_checkpoint_loads_into_one_process(cases, ranks):
+    """The split ranks' checkpoint holds the whole state: it loads into
+    one process's unsplit model and optimiser with parameters and moments
+    equal to the ranks' gathered ones."""
+    _, port, _ = cases
+    c = port["split_odometry"]
+    rank0 = ranks.get()[0]["split_odometry"][str(torch.float64)]
+    model = _as_float64(ATDNVO(ODO_HW))
+    st = odometry.OdometryTrainState(model, *odometry.make_optimizer(model, c["train_cfg"], c["steps"]))
+    odometry.load_checkpoint(Config(checkpoint_dir=os.path.join(c["checkpoint_dir"], "split")), 1, st)
+    assert st.step == 1
+    for name, value in model.state_dict().items():
+        assert torch.equal(value, rank0["whole_state"][name]), name
+    names = [n for n, _ in model.named_parameters()]
+    moments = st.optimizer.state_dict()["state"]
+    assert moments.keys() == rank0["whole_moments"].keys()
+    for i, m in moments.items():
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(m[k], rank0["whole_moments"][i][k]), (names[i], k)
+
+
+def test_one_process_checkpoint_loads_onto_split_ranks(cases, ranks):
+    """A one-process checkpoint after one step, loaded onto the split
+    ranks: their next step equals one process's next step (float64
+    bounds)."""
+    _, port, _ = cases
+    c = port["split_odometry"]
+    model = _as_float64(ATDNVO(ODO_HW))
+    st = odometry.OdometryTrainState(model, *odometry.make_optimizer(model, c["train_cfg"], c["steps"]))
+    odometry.load_checkpoint(Config(checkpoint_dir=c["single_checkpoint_dir"]), 1, st)
+    metrics = odometry.train_step(st, *(x.double() for x in c["batch"]), LossConfig(alpha=c["alpha"]))
+    single = _port_step_result(model, metrics)
+    for out in ranks.get():
+        got = out["loaded_split_step"]
+        assert got["step"] == st.step == 2
+        check_step64(got, single)
 
 
 def test_data_parallel_map_step_matches(cases, ranks, monkeypatch):

@@ -5,8 +5,10 @@
 
 joins a gloo group of WORLD processes at ``localhost:PORT``, reads the
 cases from ``WORK_DIR/inputs.pt``, runs each through the port's row- or
-batch-split entry point and writes ``WORK_DIR/rank<RANK>.pt``. It imports
-torch and the port alone, never JAX.
+batch-split entry point and writes ``WORK_DIR/rank<RANK>.pt``. With a
+fifth argument ``grid`` it runs only the odometry step with its
+parameters split over the "model" ranks of a 2 x (WORLD / 2) mesh. It
+imports torch and the port alone, never JAX.
 """
 
 from __future__ import annotations
@@ -95,6 +97,83 @@ def run_odometry(case: dict, mesh) -> dict:
     return out
 
 
+def run_split_odometry(case: dict, mesh) -> dict:
+    """The odometry step with the JAX rule's parameters split over the
+    mesh's "model" ranks, from the case's whole weights (float32) or, with
+    ``case["seed"]``, from ``init_state``'s seeded weights (float64 and
+    float32). Each run keeps the first step's gathered gradients, metrics
+    and statistics, the split parameters' local and whole sizes and their
+    moments' sizes, and the dropout outputs' zeros; the float32 run takes
+    ``case["steps"]`` steps in all and keeps the replicated parameters."""
+    from atdn_vslam_torch.config import Config
+    from atdn_vslam_torch.models.blocks import Dropout
+    from atdn_vslam_torch.models.odometry import ATDNVO
+    from atdn_vslam_torch.parallel import shard_batch, tensor_parallel
+    from atdn_vslam_torch.parallel.mesh import model_parallel_sharding
+    from atdn_vslam_torch.training import odometry
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        model = ATDNVO(case["hw"], **case.get("opts", {}))
+        if dtype == torch.float64:
+            as_float64(model)
+        sharding = model_parallel_sharding(mesh, model)
+        if "seed" in case:
+            state = odometry.init_state(model, case["train_cfg"], case["steps"], case["seed"], mesh, sharding)
+        else:
+            model.load_state_dict(case["state_dict"])
+            tensor_parallel.shard_model(model, mesh, sharding)
+            state = odometry.OdometryTrainState(model, *odometry.make_optimizer(model, case["train_cfg"], case["steps"]))
+        masks = []
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.register_forward_hook(lambda mod, args, y: masks.append(y.detach() == 0))
+        batch = shard_batch(mesh, tuple(x.to(dtype) for x in case["batch"]))
+        loss_cfg = LossConfig(alpha=case["alpha"])
+        metrics = odometry.train_step(state, *batch, loss_cfg, mesh)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        res = _step_result(model, metrics)
+        res["grads"] = tensor_parallel.gather_split(model, grads)
+        res["masks"] = masks
+        res["split"] = {n: (model.get_parameter(n).numel(), res["grads"][n].numel(),
+                            state.optimizer.state[model.get_parameter(n)]["exp_avg"].numel(),
+                            state.optimizer.state[model.get_parameter(n)]["exp_avg_sq"].numel())
+                        for n in tensor_parallel.model_splits(model)}
+        res["sharding"] = {n: v is not None for n, v in sharding.items()}
+        if "checkpoint_dir" in case and dtype == torch.float64:
+            cfg = Config(checkpoint_dir=os.path.join(case["checkpoint_dir"], "split"))
+            odometry.save_checkpoint(cfg, 1, state)
+            res["whole_state"] = {k: v.clone() for k, v in tensor_parallel.gathered_state_dict(model).items()}
+            res["whole_moments"] = tensor_parallel.gathered_optimizer_state(state.optimizer, model)["state"]
+        if dtype == torch.float32:
+            for _ in range(case["steps"] - 1):
+                odometry.train_step(state, *batch, loss_cfg, mesh)
+            splits = tensor_parallel.model_splits(model)
+            res["replicated"] = {n: p.detach().clone() for n, p in model.named_parameters() if n not in splits}
+        out[str(dtype)] = res
+    return out
+
+
+def run_loaded_split_step(case: dict, mesh) -> dict:
+    """A one-process checkpoint (float64) loaded onto split ranks, then
+    the next step: its gathered gradients and metrics."""
+    from atdn_vslam_torch.config import Config
+    from atdn_vslam_torch.models.odometry import ATDNVO
+    from atdn_vslam_torch.parallel import shard_batch, tensor_parallel
+    from atdn_vslam_torch.training import odometry
+
+    model = as_float64(ATDNVO(case["hw"]))
+    tensor_parallel.shard_model(model, mesh)
+    state = odometry.OdometryTrainState(model, *odometry.make_optimizer(model, case["train_cfg"], case["steps"]))
+    odometry.load_checkpoint(Config(checkpoint_dir=case["single_checkpoint_dir"]), 1, state)
+    batch = shard_batch(mesh, tuple(x.double() for x in case["batch"]))
+    metrics = odometry.train_step(state, *batch, LossConfig(alpha=case["alpha"]), mesh)
+    res = _step_result(model, metrics)
+    res["grads"] = tensor_parallel.gather_split(model, {n: p.grad for n, p in model.named_parameters()})
+    res["step"] = state.step
+    return res
+
+
 def run_mapping(case: dict, mesh) -> dict:
     from atdn_vslam_torch.models.mapping import MappingVAE
     from atdn_vslam_torch.parallel import shard_batch
@@ -168,12 +247,21 @@ def main(argv: list[str]) -> int:
     rank, world, port, work = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
     distributed.initialize(f"localhost:{port}", world, rank, backend="gloo", device="cpu")
     cases = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    if argv[4:] == ["grid"]:
+        grid = make_mesh(MeshConfig(data=2, model=world // 2))
+        out = {name: run_split_odometry(case, grid) for name, case in cases.items()}
+        out["mesh"] = {"shape": grid.shape, "data_index": grid.data_index, "model_index": grid.model_index}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        torch.distributed.destroy_process_group()
+        return 0
     rows = make_mesh(MeshConfig(data=1, model=world))
     batch = make_mesh(MeshConfig(data=world, model=1))
     out = {
         "flow": run_flow(cases["flow"], rows),
         "attention": run_attention(cases["attention"], rows),
         "odometry": run_odometry(cases["odometry"], batch),
+        "split_odometry": run_split_odometry(cases["split_odometry"], rows),
+        "loaded_split_step": run_loaded_split_step(cases["split_odometry"], rows),
         "mapping": run_mapping(cases["mapping"], batch),
         "flow_train": run_flow_train(cases["flow_train"], batch),
         "nearest": run_nearest(cases["nearest"], batch),
