@@ -22,6 +22,12 @@ on (2x KITTI, 752x2464, has 28952). The positional modes
 bias to the scores, on the same schedule but without K1 or K5
 (``models/flow/gma.py``), and are refused above 8192 tokens.
 
+In test mode the stages are spans (``utils/profiling.py``):
+``atdn::flow.encode`` (everything before the iterations; the features
+alone with ``encode_only``), one ``atdn::flow.update`` per iteration
+(the lookup and the update block) and ``atdn::flow.upsample``. The
+row-split and train modes record none.
+
 Row-split test mode (``mesh=``, ``parallel/flow_sharding.py``; the JAX
 ``spatial_mesh``): the ranks of the mesh axis split the H/8 rows into
 bands (``parallel.distributed.band_bounds``). Every rank runs both
@@ -69,6 +75,7 @@ from atdn_vslam_torch.ops.corr_lookup_nlanes import (
 from atdn_vslam_torch.ops.upsample import convex_upsample
 from atdn_vslam_torch.parallel.distributed import band_bounds, gather_bands, group_rank, group_size
 from atdn_vslam_torch.utils.helpers import full_float32
+from atdn_vslam_torch.utils.profiling import span
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -192,7 +199,46 @@ class RAFTGMA(nn.Module):
 
     def _forward(self, image1, image2, test_mode, flow_init, fmap1, fmap2, return_features, encode_only):
         if encode_only:
-            return _nhwc(self.fnet(self._prep(image1)))
+            with span("atdn::flow.encode"):
+                return _nhwc(self.fnet(self._prep(image1)))
+        if not test_mode:
+            _, pyramid, _, net, inp, attn, coords0, coords1 = self._encode(
+                image1, image2, test_mode, flow_init, fmap1, fmap2
+            )
+            preds = []
+            for _ in range(self.iters):
+                args = (net, coords1, coords0, inp, attn, pyramid)
+                if self.remat:
+                    net, coords1, flow_up = checkpoint(self._train_iteration, *args, use_reentrant=False)
+                else:
+                    net, coords1, flow_up = self._train_iteration(*args)
+                preds.append(flow_up)
+            return torch.stack(preds)
+        with span("atdn::flow.encode"):
+            f2, pyramid, lookup, net, inp, attn, coords0, coords1 = self._encode(
+                image1, image2, test_mode, flow_init, fmap1, fmap2
+            )
+        for _ in range(self.iters):
+            with span("atdn::flow.update"):
+                corr = lookup(pyramid, coords1, self.corr_radius)
+                flow = coords1 - coords0
+                net, delta_flow = self.update_block(
+                    net, inp, _nchw(corr).to(self.dtype), _nchw(flow).to(self.dtype), attn
+                )
+                coords1 = coords1 + _nhwc(delta_flow).float()
+
+        with span("atdn::flow.upsample"):
+            flow_low = coords1 - coords0
+            mask = _nhwc(self.update_block.upsample_mask(net)).float()
+            flow_up = convex_upsample(flow_low, mask)
+        if return_features:
+            return (flow_low, flow_up), _nhwc(f2)
+        return flow_low, flow_up
+
+    def _encode(self, image1, image2, test_mode, flow_init, fmap1, fmap2):
+        """Everything before the iterations: the features, the volume, the
+        context and the attention (K1 where materialised); (f2, pyramid,
+        lookup, net, inp, attn, coords0, coords1)."""
         x2 = self._prep(image2)
         if fmap1 is None:
             if fmap2 is not None:
@@ -227,30 +273,7 @@ class RAFTGMA(nn.Module):
         coords1 = coords0.expand(b, h8, w8, 2)
         if flow_init is not None:
             coords1 = coords1 + flow_init.float()
-        if not test_mode:
-            preds = []
-            for _ in range(self.iters):
-                args = (net, coords1, coords0, inp, attn, pyramid)
-                if self.remat:
-                    net, coords1, flow_up = checkpoint(self._train_iteration, *args, use_reentrant=False)
-                else:
-                    net, coords1, flow_up = self._train_iteration(*args)
-                preds.append(flow_up)
-            return torch.stack(preds)
-        for _ in range(self.iters):
-            corr = lookup(pyramid, coords1, self.corr_radius)
-            flow = coords1 - coords0
-            net, delta_flow = self.update_block(
-                net, inp, _nchw(corr).to(self.dtype), _nchw(flow).to(self.dtype), attn
-            )
-            coords1 = coords1 + _nhwc(delta_flow).float()
-
-        flow_low = coords1 - coords0
-        mask = _nhwc(self.update_block.upsample_mask(net)).float()
-        flow_up = convex_upsample(flow_low, mask)
-        if return_features:
-            return (flow_low, flow_up), _nhwc(f2)
-        return flow_low, flow_up
+        return f2, pyramid, lookup, net, inp, attn, coords0, coords1
 
     def _forward_rows(self, image1, image2, mesh, axis):
         if self.corr_nlanes or self.position_only or self.att.pos_emb is not None:

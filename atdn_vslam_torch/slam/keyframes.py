@@ -3,6 +3,12 @@ as ``.npy`` files under ``<base>/rgb`` (written on a background thread)
 and optional embeddings; the port's own copy of
 ``atdn_vslam_tpu/slam/keyframes.py``, with its nearest-code search split
 over the ranks of a mesh (:func:`nearest_sharded`).
+
+Spans (``utils/profiling.py``): ``atdn::keyframes.append`` covers an
+append, ``atdn::keyframes.stall`` an append's wait on a full queue of
+writes, and ``atdn::keyframes.write`` each write, on the writer thread,
+under the request of the span that appended it. Appends and stalls
+against finished writes give the queue's depth at any moment.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import numpy as np
 import torch
 
 from atdn_vslam_torch.parallel.distributed import gather_bands
+from atdn_vslam_torch.utils.profiling import current_request, span
 
 
 class KeyframeStore:
@@ -100,16 +107,22 @@ class KeyframeStore:
             self.poses = grown
             self.capacity *= 2
         idx = self.count
-        os.makedirs(self.rgb_dir, exist_ok=True)
-        if self._pool is not None:
-            # copy: the write may run several appends later, and a
-            # reused caller buffer would be saved with the wrong frame
-            rgb = np.array(rgb, np.uint8, copy=True)
-            if len(self._pending) >= self._max_pending:
-                self._pending.pop(0).result()
-            self._pending.append(self._pool.submit(np.save, self.rgb_path(idx), rgb))
-        else:
-            np.save(self.rgb_path(idx), np.asarray(rgb, np.uint8))
+        with span("atdn::keyframes.append"):
+            os.makedirs(self.rgb_dir, exist_ok=True)
+            if self._pool is not None:
+                # copy: the write may run several appends later, and a
+                # reused caller buffer would be saved with the wrong frame
+                rgb = np.array(rgb, np.uint8, copy=True)
+                if len(self._pending) >= self._max_pending:
+                    oldest = self._pending.pop(0)
+                    if oldest.done():
+                        oldest.result()
+                    else:
+                        with span("atdn::keyframes.stall"):
+                            oldest.result()
+                self._pending.append(self._pool.submit(_write, self.rgb_path(idx), rgb, current_request()))
+            else:
+                _write(self.rgb_path(idx), np.asarray(rgb, np.uint8))
         self.poses[idx] = pose
         self.count += 1
         return idx
@@ -133,6 +146,11 @@ class KeyframeStore:
 
     def __len__(self) -> int:
         return self.count
+
+
+def _write(path: str, rgb: np.ndarray, request=None) -> None:
+    with span("atdn::keyframes.write", request):
+        np.save(path, rgb)
 
 
 def nearest_sharded(mesh, embeddings: np.ndarray, code: np.ndarray,

@@ -15,6 +15,19 @@ finds revisits among the keyframe codes, measures each with the same
 step, gates them geometrically and refines the keyframe trajectory with
 the pose-graph solve (``geometry/pose_graph.py``).
 
+Spans (``utils/profiling.py``): each odometry frame is an
+``atdn::slam.frame`` whose request is the runtime's call index (the
+first call 0), with the children ``atdn::slam.prepare`` (upload, resize,
+padding), ``atdn::slam.flow`` (the flow net, or a frame's feature
+encoding alone), ``atdn::slam.odometry`` (ATDNVO, then the pose matrix
+in ``atdn::slam.pose_matrix``, ~37 small kernels),
+``atdn::slam.pose_wait`` (the host waiting for the pose) and
+``atdn::slam.keyframe`` (the decision and, for a keyframe, its host copy
+and the store's append). A relocalisation query is an
+``atdn::slam.query`` (the call index too), a closure measurement an
+``atdn::slam.closure`` (its keyframe pair); their steps hold the same
+``flow`` and ``odometry`` spans.
+
 With a mesh (``SlamRuntime(mesh=...)``, JAX ``runtime.py:60,91-94``)
 every rank streams the same frames (the per-frame step is batch 1 and
 runs whole on each rank), and the map's training, the keyframe embedding
@@ -50,6 +63,7 @@ from atdn_vslam_torch.parallel.mesh import shard_batch
 from atdn_vslam_torch.slam.keyframes import KeyframeStore, nearest_sharded
 from atdn_vslam_torch.training.mapping import train_mapping
 from atdn_vslam_torch.utils.helpers import full_float32, log, resolve_device
+from atdn_vslam_torch.utils.profiling import span
 
 #: the trained map's weights inside the keyframe store, written by the
 #: runtime and by ``cli/train_mapping.py``, read by the warm start
@@ -152,6 +166,8 @@ class SlamRuntime:
         self._stream_flow: torch.Tensor | None = None
         self._current_pose = np.eye(4, dtype=np.float64)
         self._propagation = np.eye(4, dtype=np.float64)
+        #: calls of ``__call__`` so far, each one's request id
+        self._calls = 0
 
         if start_mode == "mapping":
             self.keyframes.load(with_embeddings=False)
@@ -177,19 +193,23 @@ class SlamRuntime:
     def _odometry_step(self, im1, im2, carry, fmap1=None, flow_init=None):
         """(frame pair, carry) -> (relative pose 4x4 float32, flow,
         low-res flow, new carry, im2's feature map)."""
-        if flow_init is not None:
-            flow_init = forward_warp_flow(flow_init)
-        (flow_low, flow), fmap2 = self.flow_model(
-            im1[None], im2[None], fmap1=fmap1, return_features=True, flow_init=flow_init
-        )
-        (rot, tr), carry = self.odometry_model(flow[:, None], carry)
-        mat = pose_to_matrix(rot[0, 0], tr[0, 0])
+        with span("atdn::slam.flow"):
+            if flow_init is not None:
+                flow_init = forward_warp_flow(flow_init)
+            (flow_low, flow), fmap2 = self.flow_model(
+                im1[None], im2[None], fmap1=fmap1, return_features=True, flow_init=flow_init
+            )
+        with span("atdn::slam.odometry"):
+            (rot, tr), carry = self.odometry_model(flow[:, None], carry)
+            with span("atdn::slam.pose_matrix"):
+                mat = pose_to_matrix(rot[0, 0], tr[0, 0])
         return mat, flow[0], flow_low, carry, fmap2
 
     @torch.inference_mode()
     def _fnet(self, image: torch.Tensor) -> torch.Tensor:
         """Feature-encode one frame (bootstraps the streaming cache)."""
-        return self.flow_model(image[None], encode_only=True)
+        with span("atdn::slam.flow"):
+            return self.flow_model(image[None], encode_only=True)
 
     # -- public API -----------------------------------------------------
 
@@ -237,31 +257,40 @@ class SlamRuntime:
             return self._relocalize(image)
         raise RuntimeError("SLAM called in invalid state!")
 
-    def _odometry_call(self, image: np.ndarray) -> np.ndarray:
-        im = self._prepare(image)
-        if self._image_buffer is None:
-            self._image_buffer = im
-            self._stream_fmap = self._fnet(im)
-            if self._warm_start:
-                h8, w8 = working_size(self.config)
-                self._stream_flow = torch.zeros(
-                    (1, h8 // 8, w8 // 8, 2), device=self.device
-                )
-            self.keyframes.append(_to_uint8(im), self._current_pose)
-            return self._current_pose.copy()
+    def _next_call(self) -> int:
+        self._calls += 1
+        return self._calls - 1
 
-        mat, _flow, flow_low, self._carry, self._stream_fmap = self._odometry_step(
-            self._image_buffer, im, self._carry, self._stream_fmap,
-            self._stream_flow if self._warm_start else None,
-        )
-        if self._warm_start:
-            self._stream_flow = flow_low
-        pred = mat.double().cpu().numpy()
-        self._current_pose = self._current_pose @ pred
-        if self._decide_keyframe(pred):
-            self.keyframes.append(_to_uint8(im), self._current_pose)
-        self._image_buffer = im
-        return self._current_pose.copy()
+    def _odometry_call(self, image: np.ndarray) -> np.ndarray:
+        with span("atdn::slam.frame", self._next_call()):
+            with span("atdn::slam.prepare"):
+                im = self._prepare(image)
+            if self._image_buffer is None:
+                self._image_buffer = im
+                self._stream_fmap = self._fnet(im)
+                if self._warm_start:
+                    h8, w8 = working_size(self.config)
+                    self._stream_flow = torch.zeros(
+                        (1, h8 // 8, w8 // 8, 2), device=self.device
+                    )
+                with span("atdn::slam.keyframe"):
+                    self.keyframes.append(_to_uint8(im), self._current_pose)
+                return self._current_pose.copy()
+
+            mat, _flow, flow_low, self._carry, self._stream_fmap = self._odometry_step(
+                self._image_buffer, im, self._carry, self._stream_fmap,
+                self._stream_flow if self._warm_start else None,
+            )
+            if self._warm_start:
+                self._stream_flow = flow_low
+            with span("atdn::slam.pose_wait"):
+                pred = mat.double().cpu().numpy()
+            self._current_pose = self._current_pose @ pred
+            with span("atdn::slam.keyframe"):
+                if self._decide_keyframe(pred):
+                    self.keyframes.append(_to_uint8(im), self._current_pose)
+            self._image_buffer = im
+            return self._current_pose.copy()
 
     def _decide_keyframe(self, pred: np.ndarray) -> bool:
         """Threshold test on the motion accumulated since the last
@@ -339,24 +368,27 @@ class SlamRuntime:
         distance gives the initial pose; one flow + odometry step from
         that keyframe to the query, with a fresh LSTM carry and the
         keyframe's cached feature map, refines it."""
-        im = self._prepare(image)
-        with torch.inference_mode():
-            code = self.mapping_model.get_code(im[None]).cpu().numpy()
-        if self._mesh is not None:
-            n = len(self.keyframes)
-            if self.keyframes.embeddings is None:
-                raise RuntimeError("Store has no embeddings; run mapping first")
-            idx, distances = nearest_sharded(self._mesh, self.keyframes.embeddings[:n], code, self.device)
-        else:
-            idx, distances = self.keyframes.nearest(code)
-        initial = self.keyframes.poses[idx].copy()
-        key_rgb = self._prepare(self.keyframes.read_rgb(idx))
-        carry = self.odometry_model.init_carry(1)
-        mat, _flow, _low, _carry, _fmap = self._odometry_step(
-            key_rgb, im, carry, self._keyframe_fmap(idx, key_rgb)
-        )
-        refined = initial @ mat.double().cpu().numpy()
-        return initial, refined, distances
+        with span("atdn::slam.query", self._next_call()):
+            im = self._prepare(image)
+            with torch.inference_mode():
+                code = self.mapping_model.get_code(im[None]).cpu().numpy()
+            if self._mesh is not None:
+                n = len(self.keyframes)
+                if self.keyframes.embeddings is None:
+                    raise RuntimeError("Store has no embeddings; run mapping first")
+                idx, distances = nearest_sharded(
+                    self._mesh, self.keyframes.embeddings[:n], code, self.device
+                )
+            else:
+                idx, distances = self.keyframes.nearest(code)
+            initial = self.keyframes.poses[idx].copy()
+            key_rgb = self._prepare(self.keyframes.read_rgb(idx))
+            carry = self.odometry_model.init_carry(1)
+            mat, _flow, _low, _carry, _fmap = self._odometry_step(
+                key_rgb, im, carry, self._keyframe_fmap(idx, key_rgb)
+            )
+            refined = initial @ mat.double().cpu().numpy()
+            return initial, refined, distances
 
     # -- the pose graph and loop closure ----------------------------------
     #
@@ -466,13 +498,14 @@ class SlamRuntime:
         """Keyframe j's pose in keyframe i's frame, measured by one flow +
         odometry step from i to j with a fresh LSTM carry and keyframe
         i's cached feature map (the relocalisation regime); float64."""
-        im_i = self._prepare(self.keyframes.read_rgb(i))
-        im_j = self._prepare(self.keyframes.read_rgb(j))
-        carry = self.odometry_model.init_carry(1)
-        mat, _flow, _low, _carry, _fmap = self._odometry_step(
-            im_i, im_j, carry, self._keyframe_fmap(i, im_i)
-        )
-        return mat.double().cpu().numpy()
+        with span("atdn::slam.closure", (i, j)):
+            im_i = self._prepare(self.keyframes.read_rgb(i))
+            im_j = self._prepare(self.keyframes.read_rgb(j))
+            carry = self.odometry_model.init_carry(1)
+            mat, _flow, _low, _carry, _fmap = self._odometry_step(
+                im_i, im_j, carry, self._keyframe_fmap(i, im_i)
+            )
+            return mat.double().cpu().numpy()
 
     def detect_closures(
         self,

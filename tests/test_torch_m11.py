@@ -222,11 +222,8 @@ def test_clock_beta_scheduler_and_shape_log(tmp_path, capsys):
 
 
 def test_profiling_helpers(tmp_path):
-    with profiling.timed("matmul") as t:
-        t.result = torch.ones(128, 128) @ torch.ones(128, 128)
-    assert t.seconds > 0.0 and t.tag == "matmul"
     with profiling.trace(str(tmp_path / "trace")):
-        with profiling.annotate("stage"):
+        with profiling.span("stage"):
             torch.ones(32).sum()
     text = (tmp_path / "trace" / "trace.json").read_text()
     assert '"stage"' in text
