@@ -18,9 +18,15 @@ import yaml
 
 @dataclass(frozen=True)
 class FlowNetConfig:
-    """GMA / RAFT flow-network knobs (ref: utils/gma_parameters.py:1-34,
-    GMA/core/network.py:31-34)."""
+    """Flow-network knobs (ref: utils/gma_parameters.py:1-34,
+    GMA/core/network.py:31-34). ``arch`` picks the flow net; GMFlow
+    (``"gmflow"``) has the published widths, fixed in
+    ``models/flow/gmflow.py``, and reads ``mixed_precision`` alone of the
+    rest. The port alone reads ``arch``: a file that sets it does not load
+    in the JAX package."""
 
+    #: ``"gma"`` (RAFTGMA) or ``"gmflow"`` (models/flow/gmflow.py)
+    arch: str = "gma"
     hidden_dim: int = 128
     context_dim: int = 128
     corr_levels: int = 4

@@ -120,19 +120,23 @@ __device__ __forceinline__ void pv_product(float (&o)[64], const uint32_t (&p)[3
 // (registers i with bit 1 clear, set): s becomes p = 2^(c s - m), m the
 // running row max of c s; l takes the tile's row sums; corr is the
 // factor that rescales the accumulator to the new max. With MASK, keys
-// at or past `valid` score NEG, so p = 0.
-template <bool MASK>
+// at or past `valid` score NEG, so p = 0. With REGIONS, score i counts
+// only where bit i of `same` is set, and p = 0 exactly for the others,
+// also while every key of a row so far was masked (m still NEG).
+template <bool MASK, bool REGIONS>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], float c, int valid) {
+                                             float (&corr)[2], float c, int valid, uint64_t same) {
   const int t = threadIdx.x % 4;
   float mx[2] = {NEG, NEG};
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     float x = s[i] * c;
     if (MASK && 8 * (i >> 2) + 2 * t + (i & 1) >= valid) x = NEG;
+    if (REGIONS && !((same >> i) & 1ull)) x = NEG;
     s[i] = x;
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
   }
+  float base[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {  // the four lanes of a row group hold one row
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -140,11 +144,12 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     const float mn = fmaxf(m[r], mx[r]);
     corr[r] = ex2(m[r] - mn);
     m[r] = mn;
+    base[r] = (REGIONS && mn == NEG) ? 0.0f : mn;
   }
   float sum[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
-    const float p = ex2(s[i] - m[(i >> 1) & 1]);
+    const float p = ex2(s[i] - base[(i >> 1) & 1]);
     s[i] = p;
     sum[(i >> 1) & 1] += p;
   }
@@ -156,19 +161,47 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   }
 }
 
+template <bool REGIONS>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], float c, int valid, bool mask) {
+                                             float (&corr)[2], float c, int valid, bool mask,
+                                             uint64_t same) {
   if (mask)
-    softmax_tile<true>(s, m, l, corr, c, valid);
+    softmax_tile<true, REGIONS>(s, m, l, corr, c, valid, same);
   else
-    softmax_tile<false>(s, m, l, corr, c, valid);
+    softmax_tile<false, REGIONS>(s, m, l, corr, c, valid, same);
 }
 
-__global__ void __launch_bounds__(FLASH_THREADS, 1)
-flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
-                  const __grid_constant__ CUtensorMap map_k,
-                  const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out, int nq,
-                  int nk, int dv, float c) {
+// K5r: bit i of the result is set where the key of the thread's score
+// register i in the tile of keys from col0 (column col0 + 8 (i >> 2) +
+// 2 t + (i & 1), t = lane % 4) lies before nk and in the region of the
+// register's row (r0 for (i >> 1) & 1 == 0, r1 otherwise); kreg is the
+// batch's row of key ids
+__device__ __forceinline__ uint64_t region_bits(const int* __restrict__ kreg, int col0, int nk,
+                                                int r0, int r1) {
+  const int t = threadIdx.x % 4;
+  uint64_t bits = 0;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + 8 * jj + 2 * t + e;
+      if (col < nk) {
+        const int r = __ldg(kreg + col);
+        bits |= static_cast<uint64_t>(r == r0) << (4 * jj + e);
+        bits |= static_cast<uint64_t>(r == r1) << (4 * jj + 2 + e);
+      }
+    }
+  }
+  return bits;
+}
+
+// the bf16 kernel's body; REGIONS (K5r) reads the (b, nk) key ids
+// `regions` (nq = nk: the queries' ids are the same row)
+template <bool REGIONS>
+__device__ __forceinline__ void flash_bf16_body(const CUtensorMap* map_q, const CUtensorMap* map_k,
+                                                const CUtensorMap* map_v, bf16* __restrict__ out,
+                                                int nq, int nk, int dv, float c,
+                                                const int* __restrict__ regions) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align1024(smem_raw);  // q, then the k stages, then the v stages
   unsigned char* ks = qs + TILE;
@@ -200,8 +233,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
       mbar_arrive_expect_tx(full_q, TILE);
-      tma_load_3d(qs, &map_q, full_q, 0, row0, b);
-      tma_load_3d(qs + BOX, &map_q, full_q, 64, row0, b);
+      tma_load_3d(qs, map_q, full_q, 0, row0, b);
+      tma_load_3d(qs + BOX, map_q, full_q, 64, row0, b);
       for (int j = 0; j < tiles; ++j) {
         const int s = j % KSTAGES;
         const uint32_t free_parity = ((j / KSTAGES) & 1) ^ 1;
@@ -209,12 +242,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
         unsigned char* vt = vs + s * TILE;
         mbar_wait(&empty_k[s], free_parity);
         mbar_arrive_expect_tx(&full_k[s], TILE);
-        tma_load_3d(kt, &map_k, &full_k[s], 0, j * KN, b);
-        tma_load_3d(kt + BOX, &map_k, &full_k[s], 64, j * KN, b);
+        tma_load_3d(kt, map_k, &full_k[s], 0, j * KN, b);
+        tma_load_3d(kt + BOX, map_k, &full_k[s], 64, j * KN, b);
         mbar_wait(&empty_v[s], free_parity);
         mbar_arrive_expect_tx(&full_v[s], TILE);
-        tma_load_3d(vt, &map_v, &full_v[s], 0, j * KN, b);
-        tma_load_3d(vt + BOX, &map_v, &full_v[s], 64, j * KN, b);
+        tma_load_3d(vt, map_v, &full_v[s], 0, j * KN, b);
+        tma_load_3d(vt + BOX, map_v, &full_v[s], 64, j * KN, b);
       }
     }
   } else {
@@ -224,6 +257,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     const int last_valid = nk - (tiles - 1) * KN;  // keys in the last tile
     float o[64], s[64], m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f}, corr[2];
     uint32_t p[32];
+    // K5r: the ids of rows g and g + 8 of the warp's 16 (r0, r1 below)
+    const int qrow = row0 + wg * 64 + (threadIdx.x % 128) / 32 * 16 + (threadIdx.x % 32) / 4;
+    const int* kreg = REGIONS ? regions + (size_t)b * nk : nullptr;
+    const int reg0 = REGIONS && qrow < nq ? __ldg(kreg + qrow) : 0;
+    const int reg1 = REGIONS && qrow + 8 < nq ? __ldg(kreg + qrow + 8) : 0;
+    uint64_t same = 0;
 #pragma unroll
     for (int i = 0; i < 64; ++i) o[i] = 0.0f;
     // the turns alternate between the warpgroups, warpgroup 0 first
@@ -237,10 +276,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     qk_product(s, qw, ks);
     wgmma_commit();
     named_bar_arrive(TURN + 1 - wg, 256);
+    if (REGIONS) same = region_bits(kreg, 0, nk, reg0, reg1);
     wgmma_wait<0>();
     fence_regs(s);
     mbar_arrive(&empty_k[0]);
-    softmax_tile(s, m, l, corr, c, last_valid, tiles == 1 && last_valid < KN);
+    softmax_tile<REGIONS>(s, m, l, corr, c, last_valid, tiles == 1 && last_valid < KN, same);
 #pragma unroll
     for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 
@@ -256,11 +296,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       pv_product(o, p, vs + sv * TILE);
       wgmma_commit();
       named_bar_arrive(TURN + 1 - wg, 256);
+      if (REGIONS) same = region_bits(kreg, j * KN, nk, reg0, reg1);
       // ... the softmax of tile j while P v runs
       wgmma_wait<1>();
       fence_regs(s);
       mbar_arrive(&empty_k[sk]);
-      softmax_tile(s, m, l, corr, c, last_valid, j == tiles - 1 && last_valid < KN);
+      softmax_tile<REGIONS>(s, m, l, corr, c, last_valid, j == tiles - 1 && last_valid < KN, same);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(p);
@@ -303,14 +344,35 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+__global__ void __launch_bounds__(FLASH_THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out, int nq,
+                  int nk, int dv, float c) {
+  flash_bf16_body<false>(&map_q, &map_k, &map_v, out, nq, nk, dv, c, nullptr);
+}
+
+__global__ void __launch_bounds__(FLASH_THREADS, 1)
+flash_regions_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+                          int n, int dv, float c, const int* __restrict__ regions) {
+  flash_bf16_body<true>(&map_q, &map_k, &map_v, out, n, n, dv, c, regions);
+}
+
 // float32: the same loop with plain FMA over shared-memory tiles. For
 // the scores and the output, thread (ty, tx) of a 16 x 8 layout owns
 // rows 4ty .. 4ty + 3 and columns tx + 8j; for the softmax, threads 2r
 // and 2r + 1 own row r, 16 key columns each.
-__global__ void __launch_bounds__(THREADS)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int nq, int nk, int d,
-                 int dv, float scale) {
+// (REGIONS: K5r, a key counts only where its id in the (b, nk) `regions`
+// equals the query's, nq = nk; p = 0 exactly for the others, also while
+// every key of a row so far was masked)
+template <bool REGIONS>
+__device__ __forceinline__ void flash_f32_body(const float* __restrict__ q,
+                                               const float* __restrict__ k,
+                                               const float* __restrict__ v,
+                                               float* __restrict__ out, int nq, int nk, int d,
+                                               int dv, float scale, const int* __restrict__ regions) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float corr[BM], lsum[BM];
   const int ldq = d + FPAD, ldv = dv + FPAD, ldp = FBN + 1;
@@ -325,6 +387,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   out += (size_t)b * nq * dv;
   const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
   const int pr = threadIdx.x / 2, ph = threadIdx.x % 2;
+  const int* kreg = REGIONS ? regions + (size_t)b * nk : nullptr;
+  int qreg[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty * 4 + i;
+    qreg[i] = REGIONS && row < nq ? __ldg(kreg + row) : 0;
+  }
 
   load_rows(q, nq, d, row0, BM, FPAD, qs);
   float acc[4][MAXD / 8];
@@ -359,7 +428,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < FBN / 8; ++j)
-        ps[(ty * 4 + i) * ldp + tx + 8 * j] = col0 + tx + 8 * j < nk ? s[i][j] * scale : NEG;
+        ps[(ty * 4 + i) * ldp + tx + 8 * j] =
+            col0 + tx + 8 * j < nk && (!REGIONS || __ldg(kreg + col0 + tx + 8 * j) == qreg[i])
+                ? s[i][j] * scale
+                : NEG;
     __syncthreads();
 
     float* prow = ps + pr * ldp + ph * (FBN / 2);
@@ -369,10 +441,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     const float mn = fmaxf(m_run, mx);
     const float cr = expf(m_run - mn);
+    const float base = REGIONS && mn == NEG ? 0.0f : mn;
     float sum = 0.0f;
 #pragma unroll
     for (int c = 0; c < FBN / 2; ++c) {
-      const float p = expf(prow[c] - mn);
+      const float p = expf(prow[c] - base);
       prow[c] = p;
       sum += p;
     }
@@ -409,17 +482,29 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int nq, int nk, int d,
+                 int dv, float scale) {
+  flash_f32_body<false>(q, k, v, out, nq, nk, d, dv, scale, nullptr);
+}
+
+__global__ void __launch_bounds__(THREADS)
+flash_regions_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ out, int n, int d,
+                         int dv, float scale, const int* __restrict__ regions) {
+  flash_f32_body<true>(q, k, v, out, n, n, d, dv, scale, regions);
+}
+
 }  // namespace
 
-// q (b, nq, d), k (b, nk, d), v (b, nk, dv), out (b, nq, dv), all
-// contiguous with 16-byte aligned starts, all bf16 (is_bf16 = 1) or all
-// float32. Requires d and dv multiples of 16 in [16, 128]. Returns a
-// cudaError_t (0 on success), or hopper::TENSOR_MAP_ERROR + a CUresult.
-extern "C" int atdn_flash_attend(const void* q, const void* k, const void* v, void* out, int b,
-                                 int nq, int nk, int d, int dv, float scale, int is_bf16,
-                                 int device, void* stream) {
+namespace {
+
+// the launch of K5 (regions == nullptr) or K5r (nq = nk, regions (b, nk))
+int launch(const void* q, const void* k, const void* v, const int* regions, void* out, int b,
+           int nq, int nk, int d, int dv, float scale, int is_bf16, int device, void* stream) {
   if (b < 1 || b > 65535 || nq < 1 || nk < 1 || d % 16 || dv % 16 || d < 16 || dv < 16 ||
-      d > MAXD || dv > MAXD)
+      d > MAXD || dv > MAXD || (regions != nullptr && nq != nk))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -430,21 +515,63 @@ extern "C" int atdn_flash_attend(const void* q, const void* k, const void* v, vo
     if (e == 0) e = encode_bf16_3d(&map_k, k, d, nk, b, 64, KN);
     if (e == 0) e = encode_bf16_3d(&map_v, v, dv, nk, b, 64, KN);
     if (e != 0) return e;
-    err = cudaFuncSetAttribute(flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               FLASH_SMEM);
-    if (err != cudaSuccess) return (int)err;
     const dim3 grid((nq + QM - 1) / QM, b);
-    flash_bf16_kernel<<<grid, FLASH_THREADS, FLASH_SMEM, st>>>(
-        map_q, map_k, map_v, static_cast<bf16*>(out), nq, nk, dv, scale * LOG2E);
+    if (regions == nullptr) {
+      err = cudaFuncSetAttribute(flash_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 FLASH_SMEM);
+      if (err != cudaSuccess) return (int)err;
+      flash_bf16_kernel<<<grid, FLASH_THREADS, FLASH_SMEM, st>>>(
+          map_q, map_k, map_v, static_cast<bf16*>(out), nq, nk, dv, scale * LOG2E);
+    } else {
+      err = cudaFuncSetAttribute(flash_regions_bf16_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, FLASH_SMEM);
+      if (err != cudaSuccess) return (int)err;
+      flash_regions_bf16_kernel<<<grid, FLASH_THREADS, FLASH_SMEM, st>>>(
+          map_q, map_k, map_v, static_cast<bf16*>(out), nq, dv, scale * LOG2E, regions);
+    }
   } else {
     const dim3 grid((nq + BM - 1) / BM, b);
     const int smem =
         ((BM + FBN) * (d + FPAD) + FBN * (dv + FPAD) + BM * (FBN + 1)) * (int)sizeof(float);
-    err = cudaFuncSetAttribute(flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_f32_kernel<<<grid, THREADS, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), nq, nk, d, dv, scale);
+    const auto* qf = static_cast<const float*>(q);
+    const auto* kf = static_cast<const float*>(k);
+    const auto* vf = static_cast<const float*>(v);
+    if (regions == nullptr) {
+      err = cudaFuncSetAttribute(flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      flash_f32_kernel<<<grid, THREADS, smem, st>>>(qf, kf, vf, static_cast<float*>(out), nq, nk,
+                                                    d, dv, scale);
+    } else {
+      err = cudaFuncSetAttribute(flash_regions_f32_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      flash_regions_f32_kernel<<<grid, THREADS, smem, st>>>(
+          qf, kf, vf, static_cast<float*>(out), nq, d, dv, scale, regions);
+    }
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q (b, nq, d), k (b, nk, d), v (b, nk, dv), out (b, nq, dv), all
+// contiguous with 16-byte aligned starts, all bf16 (is_bf16 = 1) or all
+// float32. Requires d and dv multiples of 16 in [16, 128]. Returns a
+// cudaError_t (0 on success), or hopper::TENSOR_MAP_ERROR + a CUresult.
+extern "C" int atdn_flash_attend(const void* q, const void* k, const void* v, void* out, int b,
+                                 int nq, int nk, int d, int dv, float scale, int is_bf16,
+                                 int device, void* stream) {
+  return launch(q, k, v, nullptr, out, b, nq, nk, d, dv, scale, is_bf16, device, stream);
+}
+
+// K5r: as atdn_flash_attend with nq = nk = n, and the contiguous int32
+// (b, n) region ids `regions`: a key counts for a query only where their
+// ids agree (every query's own key does, so no row is empty).
+extern "C" int atdn_flash_attend_regions(const void* q, const void* k, const void* v,
+                                         const int* regions, void* out, int b, int n, int d,
+                                         int dv, float scale, int is_bf16, int device,
+                                         void* stream) {
+  if (regions == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, regions, out, b, n, n, d, dv, scale, is_bf16, device, stream);
 }

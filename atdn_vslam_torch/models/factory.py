@@ -11,7 +11,9 @@ MappingVAE computes in bf16 on the GPU when ``mapping.compute_dtype`` is
 Batch-norm parameters and statistics stay float32 in every case.
 The flow net's training build keeps every parameter float32 and computes
 in the same type as the inference build, under ``torch.autocast``
-(``RAFTGMA.forward``).
+(``RAFTGMA.forward``). ``flow.arch`` picks the flow net: RAFTGMA
+(``"gma"``) or GMFlow (``"gmflow"``, whose matching and propagation stay
+float32 in every build; inference only).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 
 from atdn_vslam_torch.config import Config
 from atdn_vslam_torch.models.flow.gma import RelPosEmb
+from atdn_vslam_torch.models.flow.gmflow import FeatureFlowAttention, GMFlow
 from atdn_vslam_torch.models.flow.network import RAFTGMA
 from atdn_vslam_torch.models.mapping import MappingVAE
 from atdn_vslam_torch.models.odometry import ATDNVO
@@ -46,19 +49,28 @@ def build_flow_model(
     device: str | torch.device = "cuda",
     use_pallas: bool | None = None,
     corr_nlanes: bool = False,
-) -> RAFTGMA:
-    """RAFTGMA in the config's widths and compute type. ``use_pallas``
-    and ``corr_nlanes`` are :class:`RAFTGMA`'s kernel switches; the
-    runtime keeps the defaults (attention by token count, the default
-    pyramid), as the JAX factory does on a TPU."""
+) -> RAFTGMA | GMFlow:
+    """The flow net that ``config.flow.arch`` names, in the config's widths
+    and compute type, in eval mode: RAFTGMA for ``"gma"``, GMFlow for
+    ``"gmflow"``. ``use_pallas`` and ``corr_nlanes`` are
+    :class:`RAFTGMA`'s kernel switches (GMFlow refuses them); the runtime
+    keeps the defaults (attention by token count, the default pyramid),
+    as the JAX factory does on a TPU."""
     dev = resolve_device(device)
     c = config.flow
     dtype = flow_compute_dtype(config, dev)
-    model = RAFTGMA(
-        iters=c.iters, corr_levels=c.corr_levels, corr_radius=c.corr_radius,
-        hidden_dim=c.hidden_dim, context_dim=c.context_dim, heads=c.num_heads,
-        dtype=dtype, use_pallas=use_pallas, corr_nlanes=corr_nlanes,
-    )
+    if c.arch == "gmflow":
+        if use_pallas is not None or corr_nlanes:
+            raise ValueError("use_pallas and corr_nlanes are RAFTGMA's switches; GMFlow takes neither")
+        model = GMFlow(dtype=dtype)
+    elif c.arch == "gma":
+        model = RAFTGMA(
+            iters=c.iters, corr_levels=c.corr_levels, corr_radius=c.corr_radius,
+            hidden_dim=c.hidden_dim, context_dim=c.context_dim, heads=c.num_heads,
+            dtype=dtype, use_pallas=use_pallas, corr_nlanes=corr_nlanes,
+        )
+    else:
+        raise ValueError(f"unknown flow.arch {c.arch!r}: 'gma' or 'gmflow'")
     model.to(dev)
     return cast_flow_model(model, dtype).eval()
 
@@ -76,6 +88,8 @@ def build_flow_train_model(
     """
     dev = resolve_device(device)
     c = config.flow
+    if c.arch != "gma":
+        raise NotImplementedError(f"flow.arch {c.arch!r} has no training build: only RAFTGMA trains")
     model = RAFTGMA(
         iters=c.iters, corr_levels=c.corr_levels,
         corr_radius=c.corr_radius, hidden_dim=c.hidden_dim, context_dim=c.context_dim,
@@ -84,14 +98,14 @@ def build_flow_train_model(
     return model.to(dev).train()
 
 
-def cast_flow_model(model: RAFTGMA, dtype: torch.dtype) -> RAFTGMA:
+def cast_flow_model(model: RAFTGMA | GMFlow, dtype: torch.dtype) -> RAFTGMA | GMFlow:
     """``model`` in ``dtype``, in place, with its batch-norm parameters
-    and statistics, and the positional embeddings (which the JAX package
-    keeps and scores in float32), kept float32."""
+    and statistics, the positional embeddings (which the JAX package
+    keeps and scores in float32) and GMFlow's propagation kept float32."""
     if dtype != torch.float32:
         model.to(dtype)
         for m in model.modules():
-            if isinstance(m, (nn.BatchNorm2d, RelPosEmb)):
+            if isinstance(m, (nn.BatchNorm2d, RelPosEmb, FeatureFlowAttention)):
                 m.float()
     return model
 

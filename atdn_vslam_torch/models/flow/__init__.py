@@ -1,5 +1,7 @@
-"""GMA optical-flow network (RAFT + Global Motion Aggregation)."""
+"""Optical-flow networks: GMA (RAFT + Global Motion Aggregation) and
+GMFlow (global matching after a Swin-style transformer)."""
 
+from atdn_vslam_torch.models.flow.gmflow import GMFlow
 from atdn_vslam_torch.models.flow.network import RAFTGMA
 
-__all__ = ["RAFTGMA"]
+__all__ = ["GMFlow", "RAFTGMA"]

@@ -109,6 +109,9 @@ class RAFTGMA(nn.Module):
         gradients; K2's forward then launches twice per iteration.
     """
 
+    #: the runtime's ``flow_warm_start`` passes the last pair's flow as ``flow_init``
+    takes_flow_init = True
+
     def __init__(
         self,
         iters: int = 12,

@@ -22,6 +22,11 @@ Kernel K5 (``csrc/flash_attend.cu``) replaces the TPU kernel
 ``atdn_vslam_tpu/ops/attention.py:flash_attend``: out = softmax(scale
 q k^T) v in one pass over the keys, the scores never stored.
 
+Kernel K5r (``csrc/flash_attend.cu``, :func:`flash_attend_regions`) is
+K5 restricted to regions: each token carries an int32 region id and a
+key counts for a query only where the two ids agree. GMFlow's shifted
+windows take it (``models/flow/gmflow.py``); it has no TPU counterpart.
+
 Kernel K4 (``csrc/apply_probs.cu``) replaces the TPU kernel
 ``atdn_vslam_tpu/ops/attention.py:flash_apply_probs``: the P @ V read of
 K1's probabilities, reached through ``apply_attention_probs(...,
@@ -36,7 +41,8 @@ a band needs nothing from the other ranks, and each launches its kernel
 once on its band.
 
 Each kernel launches only through its custom op (``atdn::attention_probs``,
-``atdn::flash_attend``, ``atdn::apply_probs``; ``_kernels.define_op``),
+``atdn::flash_attend``, ``atdn::flash_attend_regions``, ``atdn::apply_probs``;
+``_kernels.define_op``),
 whose CUDA implementation counts the launch.
 
 The positional modes of GMA (a relative-position ``bias`` added to the
@@ -548,6 +554,96 @@ def _flash_attend_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
 _kernels.define_op(
     "flash_attend", "(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
     flash_attend_plain, _flash_attend_fake, _flash_attend_cuda,
+)
+
+
+def flash_attend_regions_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, regions: torch.Tensor, scale: float | None = None
+) -> torch.Tensor:
+    """Plain PyTorch version of K5r: :func:`flash_attend_plain`'s
+    arithmetic with the scores of every pair whose region ids differ left
+    out (weight exactly 0).
+
+    :param q, k: (B, N, D); v: (B, N, Dv); regions: (B, N) int32 ids of
+        the tokens, queries and keys alike.
+    :return: (B, N, Dv) in v's type.
+    """
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    s = s.masked_fill(regions[:, :, None] != regions[:, None, :], -torch.inf)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.matmul(e.to(v.dtype).float(), v.float()) / e.sum(dim=-1, keepdim=True)
+    return out.to(v.dtype)
+
+
+def flash_attend_regions(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, regions: torch.Tensor, scale: float | None = None
+) -> torch.Tensor:
+    """K5r: softmax(scale * q k^T) v over the keys of each query's own
+    region, online, the scores never stored.
+
+    On a CPU tensor this is :func:`flash_attend_regions_plain`; on a
+    CUDA tensor it launches K5r through ``atdn::flash_attend_regions`` (q,
+    k and v all bf16 or all float32 with K5's widths, ``regions`` int32)
+    and counts one launch, or raises. No backward, as K5.
+
+    :param q, k: (B, N, D); v: (B, N, Dv); regions: (B, N) int32.
+    :return: (B, N, Dv) in v's type.
+    """
+    if q.device.type == "cpu":
+        return flash_attend_regions_plain(q, k, v, regions, scale)
+    _kernels.require_cuda("flash_attend_regions", q)
+    _kernels.refuse_autograd("flash_attend_regions (K5r)", q, k, v)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return torch.ops.atdn.flash_attend_regions(q, k, v, regions, scale)
+
+
+flash_attend_regions.launches = 0
+
+
+def _flash_attend_regions_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, regions: torch.Tensor, scale: float
+) -> torch.Tensor:
+    b, n, d = q.shape
+    dv = v.shape[2]
+    if k.shape != (b, n, d) or v.shape[:2] != (b, n) or regions.shape != (b, n):
+        raise ValueError(
+            f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} and regions "
+            f"{tuple(regions.shape)} do not match (B, N, D), (B, N, Dv), (B, N)"
+        )
+    if len({q.device, k.device, v.device, regions.device}) != 1:
+        raise ValueError(f"q, k, v and regions lie on {q.device}, {k.device}, {v.device}, {regions.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"flash_attend_regions takes bf16 or float32, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if regions.dtype != torch.int32:
+        raise TypeError(f"flash_attend_regions takes int32 region ids, got {regions.dtype}")
+    for name, width in (("head width", d), ("value width", dv)):
+        if width % 16 or not 16 <= width <= 128:
+            raise ValueError(f"{name} {width} must be a multiple of 16 in [16, 128]")
+    if n < 1:
+        raise ValueError("flash_attend_regions needs at least one token")
+    q, k, v = _kernels.aligned(q), _kernels.aligned(k), _kernels.aligned(v)
+    regions = regions.contiguous()
+    out = torch.empty((b, n, dv), dtype=v.dtype, device=q.device)
+    status = _kernels.library("flash_attend").atdn_flash_attend_regions(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), regions.data_ptr(), out.data_ptr(), b, n, d, dv,
+        float(scale), int(q.dtype == torch.bfloat16), q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _kernels.check(status, "flash_attend_regions kernel")
+    flash_attend_regions.launches += 1
+    return out
+
+
+def _flash_attend_regions_fake(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, regions: torch.Tensor, scale: float
+) -> torch.Tensor:
+    return v.new_empty((q.shape[0], q.shape[1], v.shape[2]))
+
+
+_kernels.define_op(
+    "flash_attend_regions", "(Tensor q, Tensor k, Tensor v, Tensor regions, float scale) -> Tensor",
+    flash_attend_regions_plain, _flash_attend_regions_fake, _flash_attend_regions_cuda,
 )
 
 

@@ -4,8 +4,9 @@ relocalisation.
 Counterpart of ``atdn_vslam_tpu/slam/runtime.py``: the same state
 machine (idle -> odometry -> mapping -> relocalization, with ``mode()``,
 ``start_odometry``, ``__call__``, ``end_odometry`` and the warm starts)
-and the same per-frame path. One frame in: RAFTGMA against the previous
-frame (its feature map cached from the previous step), ATDNVO with the
+and the same per-frame path. One frame in: the flow net (RAFTGMA, or
+GMFlow with ``flow.arch: gmflow``) against the previous frame (its
+feature map cached from the previous step), ATDNVO with the
 explicit LSTM carry, ``pose_to_matrix``; then float64 pose chaining and
 the rotation/translation keyframe test on the host. ``end_odometry``
 trains MappingVAE on the keyframes, saves it and embeds every keyframe;
@@ -110,8 +111,9 @@ def embed_keyframes(model: MappingVAE, store: KeyframeStore, device: torch.devic
 
 class SlamRuntime:
     """:param config: full framework config.
-    :param flow_state_dict: RAFTGMA weights (reference ``state_dict``
-        names, see ``atdn_vslam_torch.convert``).
+    :param flow_state_dict: the weights of the flow net that
+        ``config.flow.arch`` names (reference ``state_dict`` names, see
+        ``atdn_vslam_torch.convert``): RAFTGMA's or GMFlow's.
     :param odometry_state_dict: ATDNVO weights.
     :param mapping_state_dict: optional trained MappingVAE weights (for
         the ``"relocalization"`` warm start; without them it reads the
@@ -147,6 +149,9 @@ class SlamRuntime:
         self._tr_threshold = cfg.translation_threshold
 
         self.flow_model = build_flow_model(config, self.device)
+        if cfg.flow_warm_start and not self.flow_model.takes_flow_init:
+            raise ValueError(f"slam.flow_warm_start needs a flow net with a warm start; flow.arch "
+                             f"{config.flow.arch!r} has none")
         self.flow_model.load_state_dict(flow_state_dict)
         self.odometry_model = build_odometry_model(config, self.device)
         self.odometry_model.load_state_dict(odometry_state_dict)

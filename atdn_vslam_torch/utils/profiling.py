@@ -18,8 +18,9 @@
     TensorBoard).
 
 The program's span names live in the ``atdn::`` namespace of its ops:
-``atdn::slam.*`` in the runtime, ``atdn::flow.*`` in the flow net and
-``atdn::keyframes.*`` in the keyframe store.
+``atdn::slam.*`` in the runtime, ``atdn::flow.*`` in RAFTGMA,
+``atdn::gmflow.*`` in GMFlow and ``atdn::keyframes.*`` in the keyframe
+store.
 """
 
 from __future__ import annotations

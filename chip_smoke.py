@@ -11,10 +11,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
   3. kernels: each kernel against its plain PyTorch version at the
      shapes its path gives it (K1, K2: KITTI 376x1232 -> 47x154 = 7238
      tokens, K2 and K2n also at 2x KITTI; K5, K3: 2x KITTI 752x2464 ->
-     94x308 = 28952 tokens), with its time, the plain version's, one
+     94x308 = 28952 tokens; K5r: GMFlow's shifted windows at KITTI, 8 x
+     1,848 x 128), with its time, the plain version's, one
      library call's and the least time the card could take (the bound);
-     K5 and K4 also on a ragged batch of two; the Hopper designs (K1,
-     K2, K5, K4, K3, K2n, K2s, K3t) with the registers and spills that
+     K5 and K4 also on a ragged batch of two, K5r on windows of 90
+     tokens and in float32; the Hopper designs (K1,
+     K2, K5, K4, K3, K2n, K2s, K3t, K5r) with the registers and spills that
      ptxas reported, and K1, K2, K3, K2n, K2s and K3t with their blocks
      per SM (K1 also its key split, and in the kernels line the device
      time of each pass, profiled after the last phase);
@@ -28,7 +30,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      weights with a non-zero GMA gamma, with the kernels' launch counts
      read around the run (K1 once and K2 12 times per frame pair);
   6. slice_2x: the same at 752x2464, where the attention runs through
-     K5 in every iteration (K5 and K2 12 times per pair, no K1);
+     K5 in every iteration (K5 and K2 12 times per pair, no K1); then
+     gmflow_stream: the same step with ``flow.arch: gmflow`` at
+     376x1232, bf16, seeded weights (K5r 6 and K5 8 times per pair);
   7. forced_streaming: the flow net built with ``use_pallas=True`` on
      the same weights and frames at 752x2464 (K3 4 times and K5 12
      times per pair), its flows against slice_2x's default path, and
@@ -587,6 +591,61 @@ def k5_flash_attend(device, n=94 * 308, d=128, seed=5) -> dict:
     }
 
 
+def k5r_flash_attend_regions(device, hw8=(48, 154), d=128, seed=25) -> dict:
+    """K5r at GMFlow's KITTI shape: both frames' 2 x 2 windows (8) of
+    24 x 77 = 1,848 tokens (14 key tiles and a ragged one), 128 wide, with
+    the shifted layer's region ids; windows of 90 tokens (inside one
+    tile) and float32 besides. The library call is one SDPA with the
+    regions' boolean mask (built once, outside the timing); the bound
+    counts the in-region pairs alone, as ``k5r_roofline.gmflow`` does."""
+    from atdn_vslam_torch.models.flow.gmflow import shift_regions
+    from atdn_vslam_torch.ops.attention import flash_attend_regions, flash_attend_regions_plain
+
+    def case(hw, dtype):
+        regions = shift_regions(*hw, 2).repeat(2, 1).to(device)
+        g = torch.Generator(device=device).manual_seed(seed)
+        q, k, v = (torch.randn((*regions.shape, d), generator=g, device=device).to(dtype) for _ in range(3))
+        return regions, q, k, v
+
+    regions, q, k, v = case(hw8, torch.bfloat16)
+    scale = d**-0.5
+    got = flash_attend_regions(q, k, v, regions, scale)
+    max_err = check_close("flash_attend_regions", got, flash_attend_regions_plain(q, k, v, regions, scale), **K5_TOL)
+    small = case((10, 36), torch.bfloat16)
+    small_err = check_close("flash_attend_regions (90 tokens)", flash_attend_regions(*small[1:], small[0], scale),
+                            flash_attend_regions_plain(*small[1:], small[0], scale), **K5_TOL)
+    f32 = case(hw8, torch.float32)
+    f32_err = check_close("flash_attend_regions (float32)", flash_attend_regions(*f32[1:], f32[0], scale),
+                          flash_attend_regions_plain(*f32[1:], f32[0], scale), **K5_F32_TOL)
+    b, n = regions.shape
+    pairs = sum(int((torch.bincount(r) ** 2).sum()) for r in regions.cpu())
+    bytes_moved = 4 * q.numel() * q.element_size() + regions.numel() * regions.element_size()
+    bound_ms, bound_by = bound(bytes_moved, 2.0 * pairs * (d + d), torch.bfloat16)
+    mask = (regions[:, :, None] == regions[:, None, :])[:, None]
+    return {
+        "name": "flash_attend_regions",
+        "route": "cuda",
+        "source": "atdn_vslam_torch/csrc/flash_attend.cu",
+        "replaces": "none: GMFlow's shifted-window mask (gmflow/transformer.py), no TPU kernel",
+        "shape": [b, n, d], "dtype": "torch.bfloat16", "tolerance": K5_TOL,
+        "in_region_pairs": pairs, "max_abs_err": max_err,
+        "windows_of_90": {"shape": list(small[1].shape), "max_abs_err": small_err},
+        "float32": {"shape": [b, n, d], "max_abs_err": f32_err, "tolerance": K5_F32_TOL},
+        "design": "K5's tma+wgmma body with a region test on the scores: every key tile visited, "
+                  "pairs of different regions get weight 0",
+        "ptxas": ptxas_report("flash_attend", "flash_regions_bf16_kernel"),
+        "ms": time_ms(lambda: flash_attend_regions(q, k, v, regions, scale), device),
+        "plain_ms": time_ms(lambda: flash_attend_regions_plain(q, k, v, regions, scale), device, reps=5),
+        # the yardstick only, the port never calls it: (B, heads, N, D)
+        # views and the (B, 1, N, N) mask of the same regions
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], attn_mask=mask, scale=scale),
+            device,
+        ),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
 K3_DESIGN = ("tma+wgmma core (corr_dot_wgmma.cuh): 128x128 tile per block of 2 consumer WG, "
              "3-stage ring of 64-channel boxes, 2 blocks per SM, shifted-row staging and "
              "16-byte streaming row-body stores")
@@ -1001,7 +1060,12 @@ def profile_frames(step, frames, top: int = 25) -> dict:
 
 def _counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
-    from atdn_vslam_torch.ops.attention import attention_probs_spatial, flash_apply_probs, flash_attend
+    from atdn_vslam_torch.ops.attention import (
+        attention_probs_spatial,
+        flash_apply_probs,
+        flash_attend,
+        flash_attend_regions,
+    )
     from atdn_vslam_torch.ops.corr_dot_tiled import corr_dot_tiled
     from atdn_vslam_torch.ops.corr_lookup import corr_dot_rowmajor, lookup_corr_pyramid
     from atdn_vslam_torch.ops.corr_lookup_nlanes import nlanes_lookup_levels
@@ -1012,6 +1076,7 @@ def _counters() -> dict:
         "corr_dot": corr_dot_rowmajor, "flash_attend": flash_attend,
         "corr_lookup_nlanes": nlanes_lookup_levels, "apply_probs": flash_apply_probs,
         "corr_lookup_slab": lookup_corr_pyramid_slab, "corr_dot_tiled": corr_dot_tiled,
+        "flash_attend_regions": flash_attend_regions,
     }
 
 
@@ -1164,6 +1229,43 @@ def stream_slice(
     if profile:
         out["profile"] = profile_frames(rt, clip[frames:])
     return out
+
+
+def gmflow_stream(device, keyframes_path: str, hw=FULL_HW, frames=12, seed=26) -> dict:
+    """The streaming step through ``SlamRuntime`` with ``flow.arch:
+    gmflow`` at 376x1232, bf16, seeded random weights, the slices' frames:
+    K5r 6 and K5 8 times per frame pair (the shifted layers; the
+    unshifted layers, the matching and the propagation), read around the
+    run."""
+    from atdn_vslam_torch.config import Config, FlowNetConfig, SlamConfig
+    from atdn_vslam_torch.models.factory import build_flow_model, build_odometry_model, init_params
+
+    cfg = Config(keyframes_path=keyframes_path, flow=FlowNetConfig(arch="gmflow", mixed_precision=True),
+                 slam=SlamConfig(image_height=hw[0], image_width=hw[1]))
+    weights = (init_params(build_flow_model(cfg, "cpu"), seed).state_dict(),
+               init_params(build_odometry_model(cfg, "cpu"), seed + 1).state_dict())
+    clip = synthetic_frames(frames, hw, seed=1)
+    rt = new_runtime(cfg, weights, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    poses, times = run_stream(rt, clip)
+    launches = read_launches()
+    pairs = frames - 1
+    if poses.shape != (frames, 4, 4) or not np.isfinite(poses).all():
+        raise AssertionError("gmflow_stream: poses are not finite 4x4 matrices")
+    want = launches_of(flash_attend=8 * pairs, flash_attend_regions=6 * pairs)
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"gmflow_stream: launches {launches} for {pairs} frame pairs, not {want}")
+    steady = times[min(3, frames - 1):]  # the first pairs include cuDNN's autotuning
+    ms = float(np.mean(steady))
+    return {
+        "hw": list(hw), "arch": "gmflow", "frames": frames, "dtype": "bfloat16",
+        "launches": launches, "ms_per_frame": ms, "frame_ms": times, "steady_frames": len(steady),
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                         if device.type == "cuda" else None),
+        "final_translation": poses[-1, :3, 3].tolist(),
+    }
 
 
 def forced_streaming(device, hw=HW_2X, iters=12, pairs=5) -> dict:
@@ -3242,7 +3344,7 @@ def main(argv=None) -> int:
     emit("build", **results["build"])
 
     kernels = [k1_attention_probs(device), k2_corr_lookup(device)]
-    kernels += [k5_flash_attend(device), k3_corr_dot(device)]
+    kernels += [k5_flash_attend(device), k3_corr_dot(device), k5r_flash_attend_regions(device)]
     torch.cuda.empty_cache()
     kernels += [k2n_nlanes(device), k4_apply_probs(device), k2s_slab(device), k3t_corr_dot_tiled(device)]
     torch.cuda.empty_cache()
@@ -3261,6 +3363,8 @@ def main(argv=None) -> int:
         device, os.path.join(work, "keyframes_2x"), hw=HW_2X, frames=10, profile=args.profile
     )
     emit("slice_2x", card=card, **results["slice_2x"])
+    results["gmflow_stream"] = gmflow_stream(device, os.path.join(work, "keyframes_gmflow"))
+    emit("gmflow_stream", card=card, **results["gmflow_stream"])
     results["forced_streaming"] = forced_streaming(device)
     emit("forced_streaming", card=card, **results["forced_streaming"])
     results["nlanes"] = nlanes(device, profile=args.profile)
@@ -3301,10 +3405,13 @@ def main(argv=None) -> int:
     driver = {"attention_probs": "slice", "corr_lookup": "slice",
               "flash_attend": "slice_2x", "corr_dot": "forced_streaming",
               "corr_lookup_nlanes": "nlanes", "apply_probs": "entry_points",
-              "corr_lookup_slab": "entry_points", "corr_dot_tiled": "entry_points"}
+              "corr_lookup_slab": "entry_points", "corr_dot_tiled": "entry_points",
+              "flash_attend_regions": "gmflow_stream"}
     for k in kernels:
         k["launches_from"] = driver[k["name"]]
         k["launches"] = results[driver[k["name"]]]["launches"][k["name"]]
+        if k["name"] == "flash_attend":  # GMFlow's path drives it too
+            k["launches_gmflow_stream"] = results["gmflow_stream"]["launches"]["flash_attend"]
         if k["name"] in ("attention_probs", "corr_lookup"):  # the other paths that drive them
             k["launches_loop_closure"] = results["loop_closure"]["launches"][k["name"]]
             k["launches_flow_train"] = results["flow_train"]["launches"][k["name"]]
@@ -3343,8 +3450,8 @@ def main(argv=None) -> int:
             json.dump(results, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extras = ("op", "launches_loop_closure", "launches_flow_train", "launches_serving", "launches_positional",
-              "launches_parallel",
+    extras = ("op", "launches_loop_closure", "launches_flow_train", "launches_gmflow_stream", "launches_serving",
+              "launches_positional", "launches_parallel",
               "backward_ms", "backward_bound_ms",
               "backward_bound_by", "design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
               "max_abs_err_2x")

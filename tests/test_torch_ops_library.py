@@ -1,5 +1,5 @@
 """Every kernel of the port is a ``torch.library`` custom op under the
-namespace ``atdn``: ``torch.library.opcheck`` on each of the eight with
+namespace ``atdn``: ``torch.library.opcheck`` on each of the nine with
 CPU inputs (its schema, its fake implementation against the real one,
 and the op under AOT dispatch with dynamic shapes), and each op's CPU
 implementation equal to the kernel's plain version (the same function,
@@ -34,6 +34,7 @@ def _cases():
     n = h * w
     q, k, v = _t(rng, 1, n, d, scale=0.25), _t(rng, 1, n, d), _t(rng, 1, n, d)
     probs = att.attention_probs_spatial_plain(q, k, h, w, 1.0)
+    regions = torch.from_numpy(rng.integers(0, 3, (1, n)).astype(np.int32))
     # a correlation pyramid of an 8 x 9 feature map against itself
     fh, fw, c = 8, 9, 16
     f1, f2 = _t(rng, 1, fh, fw, c), _t(rng, 1, fh, fw, c)
@@ -47,6 +48,7 @@ def _cases():
         "attention_probs": ((q, k, h, w, 1.0), att.attention_probs_spatial_plain),
         "apply_probs": ((probs, v), att.flash_apply_probs_plain),
         "flash_attend": ((q, k, v, 0.5), att.flash_attend_plain),
+        "flash_attend_regions": ((q, k, v, regions, 0.5), att.flash_attend_regions_plain),
         "corr_dot": ((f1t, f2.reshape(1, fh * fw, c), 0.25, torch.float32), corr.corr_dot_rowmajor_plain),
         "corr_lookup": ((pyramid, coords, 4), corr.lookup_corr_pyramid_plain),
         "corr_lookup_nlanes": ((vols, coords.reshape(1, fh * fw, 2), 1, 4), nl.nlanes_lookup_levels_plain),
