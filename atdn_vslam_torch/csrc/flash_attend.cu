@@ -44,8 +44,10 @@
 // (164 KB of shared memory), so the second wave is 72% full; a split of
 // the keys between blocks is not done. float32 inputs take a plain-FMA
 // kernel with 64-row blocks (the GPU-vs-CPU agreement runs the model in
-// float32).
+// float32), or, for value widths of at most 4, the narrow kernel below
+// (GMFlow's float32 global matching and propagation).
 
+#include "corr_dot_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -496,6 +498,271 @@ flash_regions_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   flash_f32_body<true>(q, k, v, out, n, n, d, dv, scale, regions);
 }
 
+// ---------------------------------------------------------------------
+// float32 with narrow values (1 <= Dv <= 4): GMFlow's global matching
+// (v the pixel grid) and propagation (v the flow), 2 value columns over
+// all 7,392 tokens at KITTI, D = 128. It replaces, for such values, the
+// plain-FMA loop above, which needs Dv in multiples of 16 (GMFlow padded
+// its 2 columns to 16), runs 116 blocks of four warps on 132 SMs, loads
+// 8 floats from shared memory for every 16 FMAs and passes P through
+// shared memory with four barriers a tile.
+//
+// Bound: 2 Nq Nk (D + Dv) = 14.2 GFLOP a call at 7,392 tokens, 0.212 ms
+// at the H100's 67 TFLOP/s of float32 FMA; ~8.5 MB of q, k, v and out
+// (2.5 us at 3.35 TB/s): bound by operations, nearly all of them the
+// q k^T products (P v is 1.5% of the work). The design:
+//   - one block of eight warps per 128 query rows and one of S parts of
+//     the keys (the wrapper picks S from the SM count, so that the grid
+//     fills the card in whole waves); a 128 x 128 score tile a step, each
+//     thread 8 x 8 scores in registers (rows ry + 16i, keys cx + 16j, a
+//     warp 2 rows ry x 16 keys cx), so every float read from shared
+//     memory feeds 4 FMAs, read as float4 along D from rows padded to
+//     D + 4 floats (no bank conflicts: the 16 key rows a warp reads fill
+//     the banks twice, its 2 query rows are broadcast);
+//   - q's tile stays in shared memory for the block's life; k and v
+//     tiles go through two stages filled by cp.async while the FMAs run,
+//     one barrier a tile; keys at or past Nk are zero-filled and masked;
+//   - the softmax stays in registers: each thread keeps a running max,
+//     sum and Dv value sums for each of its 8 rows over its own keys, so
+//     no tile needs a shuffle or a barrier for the softmax; p goes
+//     straight into the value sums and is never stored;
+//   - at the part's end the 16 threads of a half-warp that share rows
+//     merge by shuffles and write the rows' (m, l, o) to a float32
+//     scratch; a second kernel merges the S parts of each row in a fixed
+//     order and divides. No atomics: the same inputs give the same bits.
+// Full float32 throughout: FMA products, float32 exponentials (ex2 of
+// the scores scaled by scale log2(e)) and sums.
+
+constexpr int NB = 128;            // query rows per block, keys per tile
+constexpr int NLD = MAXD + 4;      // shared-memory row stride of q and k (floats)
+constexpr int NTHREADS = 256;      // eight warps
+constexpr int NARROW_MAX_DV = 4;
+
+template <int DV>
+constexpr int narrow_smem() {
+  return (3 * NB * NLD + 2 * NB * DV) * (int)sizeof(float);  // q, two k stages, two v stages
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// rows [row0, row0 + NB) of a row-major (n, d) float32 matrix into shared
+// memory at row stride NLD, one warp a row; rows >= n are zero
+__device__ __forceinline__ void narrow_load_rows(const float* __restrict__ g, int n, int d, int row0,
+                                                 float* s) {
+  for (int r = threadIdx.x / 32; r < NB; r += NTHREADS / 32) {
+    const bool ok = row0 + r < n;
+    for (int c = threadIdx.x % 32 * 4; c < d; c += 128)
+      corr_dot_tiles::cp_async16(s + r * NLD + c, ok ? g + (size_t)(row0 + r) * d + c : g, ok);
+  }
+}
+
+// v's rows [key0, key0 + NB), DV floats each; rows >= n are zero
+template <int DV>
+__device__ __forceinline__ void narrow_load_values(const float* __restrict__ v, int n, int key0, float* s) {
+  for (int i = threadIdx.x; i < NB * DV; i += NTHREADS) {
+    const bool ok = key0 + i / DV < n;
+    cp_async4(s + i, ok ? v + (size_t)key0 * DV + i : v, ok);
+  }
+}
+
+// s[i][j] = q[ry + 16i] . k[cx + 16j] over d, in order of d; qa and kb
+// point at the thread's first q and k rows in shared memory
+__device__ __forceinline__ void narrow_scores(float (&s)[8][8], const float* qa, const float* kb, int d) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+  for (int d0 = 0; d0 < d; d0 += 16) {
+#pragma unroll
+    for (int dd = 0; dd < 16; dd += 4) {
+      float4 a[8], b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(qa + 16 * i * NLD + d0 + dd);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(kb + 16 * j * NLD + d0 + dd);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        }
+    }
+  }
+}
+
+// one tile's online softmax and p v for the thread's 8 rows over its 8
+// keys cx + 16j of the tile: x = c s, m the row's running max of x over
+// the thread's keys so far, l the sum of 2^(x - m), o the DV sums of
+// 2^(x - m) v. With MASK, keys at or past `valid` (of the tile) get
+// p = 0, also while every key the thread saw was masked (m still NEG).
+template <int DV, bool MASK>
+__device__ __forceinline__ void narrow_softmax(float (&s)[8][8], float (&m)[8], float (&l)[8],
+                                               float (&o)[8][DV], const float* vs, int cx, float c,
+                                               int valid) {
+  float vk[8][DV];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < DV; ++e) vk[j][e] = vs[(cx + 16 * j) * DV + e];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float mx = NEG;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float x = s[i][j] * c;
+      if (MASK && cx + 16 * j >= valid) x = NEG;
+      s[i][j] = x;
+      mx = fmaxf(mx, x);
+    }
+    const float mn = fmaxf(m[i], mx);
+    const float corr = ex2(m[i] - mn);  // 0 while m was NEG
+    const float base = MASK && mn == NEG ? 0.0f : mn;
+    m[i] = mn;
+    float sum = 0.0f, acc[DV];
+#pragma unroll
+    for (int e = 0; e < DV; ++e) acc[e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p = ex2(s[i][j] - base);
+      sum += p;
+#pragma unroll
+      for (int e = 0; e < DV; ++e) acc[e] = fmaf(p, vk[j][e], acc[e]);
+    }
+    l[i] = fmaf(l[i], corr, sum);
+#pragma unroll
+    for (int e = 0; e < DV; ++e) o[i][e] = fmaf(o[i][e], corr, acc[e]);
+  }
+}
+
+// grid (row blocks, S parts, b); ws (b, nq, S, 2 + DV): each row's
+// (m, l, o) per part
+template <int DV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_narrow_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ ws, int nq, int nk, int d,
+                        float c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // NB x NLD
+  float* ks = qs + NB * NLD;                   // 2 stages of NB x NLD
+  float* vs = ks + 2 * NB * NLD;               // 2 stages of NB x DV
+  const int row0 = blockIdx.x * NB, part = blockIdx.y, parts = gridDim.y, b = blockIdx.z;
+  const int tiles = (nk + NB - 1) / NB;
+  const int t0 = part * tiles / parts, t1 = (part + 1) * tiles / parts;
+  q += (size_t)b * nq * d;
+  k += (size_t)b * nk * d;
+  v += (size_t)b * nk * DV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ry = warp * 2 + lane / 16, cx = lane % 16;
+
+  narrow_load_rows(q, nq, d, row0, qs);
+  narrow_load_rows(k, nk, d, t0 * NB, ks);
+  narrow_load_values<DV>(v, nk, t0 * NB, vs);
+  corr_dot_tiles::cp_async_commit();
+
+  float m[8], l[8], o[8][DV];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < DV; ++e) o[i][e] = 0.0f;
+  }
+  for (int t = t0; t < t1; ++t) {
+    const int st = (t - t0) & 1;
+    corr_dot_tiles::cp_async_wait<0>();
+    __syncthreads();  // tile t has landed, and every thread is done with tile t - 1's stage
+    if (t + 1 < t1) {
+      narrow_load_rows(k, nk, d, (t + 1) * NB, ks + (st ^ 1) * NB * NLD);
+      narrow_load_values<DV>(v, nk, (t + 1) * NB, vs + (st ^ 1) * NB * DV);
+      corr_dot_tiles::cp_async_commit();
+    }
+    float s[8][8];
+    narrow_scores(s, qs + ry * NLD, ks + st * NB * NLD + cx * NLD, d);
+    const int valid = nk - t * NB;
+    if (valid < NB)
+      narrow_softmax<DV, true>(s, m, l, o, vs + st * NB * DV, cx, c, valid);
+    else
+      narrow_softmax<DV, false>(s, m, l, o, vs + st * NB * DV, cx, c, NB);
+  }
+
+  // the 16 lanes that share rows merge
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
+      float oo[DV];
+#pragma unroll
+      for (int e = 0; e < DV; ++e) oo[e] = __shfl_xor_sync(0xffffffffu, o[i][e], off);
+      const float mn = fmaxf(m[i], mo);
+      const float wa = ex2(m[i] - mn), wb = ex2(mo - mn);
+      l[i] = l[i] * wa + lo * wb;
+#pragma unroll
+      for (int e = 0; e < DV; ++e) o[i][e] = o[i][e] * wa + oo[e] * wb;
+      m[i] = mn;
+    }
+  }
+  if (cx == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + ry + 16 * i;
+      if (row >= nq) continue;
+      float* w = ws + (((size_t)b * nq + row) * parts + part) * (2 + DV);
+      w[0] = m[i];
+      w[1] = l[i];
+#pragma unroll
+      for (int e = 0; e < DV; ++e) w[2 + e] = o[i][e];
+    }
+  }
+}
+
+// out row r = (sum_p o_p 2^(m_p - m)) / (sum_p l_p 2^(m_p - m)) over the
+// row's `parts` scratch entries in order, m their largest m
+template <int DV>
+__global__ void __launch_bounds__(256)
+flash_narrow_merge_kernel(const float* __restrict__ ws, float* __restrict__ out, int rows, int parts) {
+  const int r = blockIdx.x * 256 + threadIdx.x;
+  if (r >= rows) return;
+  const float* w = ws + (size_t)r * parts * (2 + DV);
+  float m = NEG;
+  for (int p = 0; p < parts; ++p) m = fmaxf(m, w[p * (2 + DV)]);
+  float l = 0.0f, o[DV];
+#pragma unroll
+  for (int x = 0; x < DV; ++x) o[x] = 0.0f;
+  for (int p = 0; p < parts; ++p) {
+    const float* we = w + p * (2 + DV);
+    const float a = ex2(we[0] - m);
+    l = fmaf(we[1], a, l);
+#pragma unroll
+    for (int x = 0; x < DV; ++x) o[x] = fmaf(we[2 + x], a, o[x]);
+  }
+#pragma unroll
+  for (int x = 0; x < DV; ++x) out[(size_t)r * DV + x] = o[x] / l;
+}
+
+template <int DV>
+int launch_narrow(const float* q, const float* k, const float* v, float* ws, float* out, int b, int nq,
+                  int nk, int d, int parts, float c, cudaStream_t st) {
+  constexpr int smem = narrow_smem<DV>();
+  cudaError_t err = cudaFuncSetAttribute(flash_narrow_f32_kernel<DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((nq + NB - 1) / NB, parts, b);
+  flash_narrow_f32_kernel<DV><<<grid, NTHREADS, smem, st>>>(q, k, v, ws, nq, nk, d, c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int rows = b * nq;
+  flash_narrow_merge_kernel<DV><<<(rows + 255) / 256, 256, 0, st>>>(ws, out, rows, parts);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 namespace {
@@ -574,4 +841,28 @@ extern "C" int atdn_flash_attend_regions(const void* q, const void* k, const voi
                                          void* stream) {
   if (regions == nullptr) return (int)cudaErrorInvalidValue;
   return launch(q, k, v, regions, out, b, n, n, d, dv, scale, is_bf16, device, stream);
+}
+
+// K5 for float32 values 1 to 4 wide: q (b, nq, d), k (b, nk, d), v (b,
+// nk, dv), out (b, nq, dv), all float32 and contiguous, q and k with
+// 16-byte aligned starts; d a multiple of 16 in [16, 128]. The keys are
+// cut into `parts` parts of whole 128-key tiles (1 <= parts <= the
+// tiles); ws is a float32 scratch of b * nq * parts * (2 + dv) floats. Returns a cudaError_t (0 on success).
+extern "C" int atdn_flash_attend_narrow(const float* q, const float* k, const float* v, float* ws,
+                                        float* out, int b, int nq, int nk, int d, int dv, int parts,
+                                        float scale, int device, void* stream) {
+  if (b < 1 || b > 65535 || nq < 1 || nk < 1 || d % 16 || d < 16 || d > MAXD || dv < 1 ||
+      dv > NARROW_MAX_DV || parts < 1 || parts > (nk + NB - 1) / NB || parts > 65535 ||
+      (size_t)b * nq > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  auto st = static_cast<cudaStream_t>(stream);
+  const float c = scale * LOG2E;
+  switch (dv) {
+    case 1: return launch_narrow<1>(q, k, v, ws, out, b, nq, nk, d, parts, c, st);
+    case 2: return launch_narrow<2>(q, k, v, ws, out, b, nq, nk, d, parts, c, st);
+    case 3: return launch_narrow<3>(q, k, v, ws, out, b, nq, nk, d, parts, c, st);
+    default: return launch_narrow<4>(q, k, v, ws, out, b, nq, nk, d, parts, c, st);
+  }
 }

@@ -37,11 +37,11 @@ frame pair, each stage a submodule (forward hooks read them) and a span
   one launch a layer for all windows of both frames;
 - ``atdn::gmflow.match``: ``matching``, softmax(f0 f1^T / sqrt(C)) over
   every key, the (x, y) pixel grid averaged by it, less the grid: K5 in
-  float32 with the grid zero-extended to 16 columns;
+  float32 on the grid's 2 columns (its narrow kernel);
 - ``atdn::gmflow.propagate``: ``feature_flow_attn``, q = q_proj(f0), k =
   k_proj(q) (the published code projects the key from the projected
   query), softmax(q k^T / sqrt(C)) over every key applied to the flow: K5
-  in float32, the flow zero-extended to 16 columns;
+  in float32 on the flow's 2 columns;
 - ``atdn::gmflow.upsample``: ``upsampler`` (conv3x3 (2 + C) -> 256,
   ReLU, conv1x1 256 -> 576) on [flow; f0], RAFT's convex x8 upsampling
   (:func:`~atdn_vslam_torch.ops.upsample.convex_upsample`), then both
@@ -93,8 +93,6 @@ FFN_DIM_EXPANSION = 4
 ATTN_SPLITS = 2
 #: the frames' padding: the published evaluation's for KITTI
 PADDING_FACTOR = 16
-#: the flow's two columns, zero-extended to K5's narrowest value width
-_VALUE_WIDTH = 16
 #: the convex upsampling's factor: the backbone's 1/8 resolution
 _UPSAMPLE = 8
 
@@ -290,10 +288,8 @@ class FeatureTransformer(nn.Module):
 
 
 def _grid_values(b: int, h: int, w: int, device) -> torch.Tensor:
-    """The (x, y) pixel grid as K5's values: (b, h w, 16) float32, the
-    columns past 2 zero."""
-    grid = coords_grid(h, w, device=device).reshape(1, h * w, 2)
-    return F.pad(grid, (0, _VALUE_WIDTH - 2)).expand(b, -1, -1).contiguous()
+    """The (x, y) pixel grid as K5's values: (b, h w, 2) float32."""
+    return coords_grid(h, w, device=device).reshape(1, h * w, 2).expand(b, -1, -1).contiguous()
 
 
 class GlobalMatching(nn.Module):
@@ -312,7 +308,7 @@ class GlobalMatching(nn.Module):
         if grid is None:
             grid = self._grids[key] = _grid_values(b, h, w, feature0.device)
         match = flash_attend(feature0.reshape(b, h * w, c), feature1.reshape(b, h * w, c), grid, c**-0.5)
-        return (match[..., :2] - grid[..., :2]).reshape(b, h, w, 2)
+        return (match - grid).reshape(b, h, w, 2)
 
 
 class FeatureFlowAttention(nn.Module):
@@ -330,8 +326,7 @@ class FeatureFlowAttention(nn.Module):
         b, h, w, c = feature0.shape
         q = self.q_proj(feature0.reshape(b, h * w, c))
         k = self.k_proj(q)
-        v = F.pad(flow.reshape(b, h * w, 2), (0, _VALUE_WIDTH - 2))
-        return flash_attend(q, k, v, c**-0.5)[..., :2].reshape(b, h, w, 2)
+        return flash_attend(q, k, flow.reshape(b, h * w, 2), c**-0.5).reshape(b, h, w, 2)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:

@@ -60,6 +60,8 @@ _SIGNATURES = {
         "atdn_flash_attend": (_P,) * 4 + (_I,) * 5 + (_F, _I, _I, _P),
         # q, k, v, regions, out, b, n, d, dv, scale, is_bf16, device, stream
         "atdn_flash_attend_regions": (_P,) * 5 + (_I,) * 4 + (_F, _I, _I, _P),
+        # q, k, v, ws, out, b, nq, nk, d, dv, parts, scale, device, stream
+        "atdn_flash_attend_narrow": (_P,) * 5 + (_I,) * 6 + (_F, _I, _P),
     },
     "corr_dot": {
         # f1, f2, out, b, n, m, c, inv_sqrt_c, in_bf16, out_bf16, device, stream

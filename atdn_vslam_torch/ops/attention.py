@@ -20,7 +20,10 @@ TMA + wgmma core with a softmax epilogue that merges them.
 
 Kernel K5 (``csrc/flash_attend.cu``) replaces the TPU kernel
 ``atdn_vslam_tpu/ops/attention.py:flash_attend``: out = softmax(scale
-q k^T) v in one pass over the keys, the scores never stored.
+q k^T) v in one pass over the keys, the scores never stored. float32
+values 1 to 4 wide (GMFlow's matching and propagation) take its narrow
+kernel, which splits the keys into parts (:func:`_narrow_parts`) and
+merges them in a second kernel of the same op.
 
 Kernel K5r (``csrc/flash_attend.cu``, :func:`flash_attend_regions`) is
 K5 restricted to regions: each token carries an int32 region id and a
@@ -52,6 +55,8 @@ package takes XLA's (``attention.py:682-748,954-955``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -500,10 +505,11 @@ def flash_attend(
 
     On a CPU tensor this is :func:`flash_attend_plain`; on a CUDA tensor
     it launches the CUDA kernel through ``atdn::flash_attend`` (q, k and
-    v all bf16 or all float32, D and Dv multiples of 16 up to 128,
-    float32 accumulation) and counts one launch, or raises. The kernel
-    has no backward, as the JAX package's has no VJP: under grad mode a
-    CUDA input that requires grad raises.
+    v all bf16 or all float32, D and Dv multiples of 16 up to 128, or
+    float32 with Dv of 1 to 4, float32 accumulation) and counts one
+    launch, the narrow float32 values in ``narrow_launches`` too, or
+    raises. The kernel has no backward, as the JAX package's has no VJP:
+    under grad mode a CUDA input that requires grad raises.
 
     :param q: (B, Nq, D); k: (B, Nk, D); v: (B, Nk, Dv).
     :return: (B, Nq, Dv) in v's type.
@@ -517,6 +523,37 @@ def flash_attend(
 
 
 flash_attend.launches = 0
+flash_attend.narrow_launches = 0
+
+#: K5's narrow kernel: query rows per block and keys per tile, and the
+#: widest float32 values it takes
+_NARROW_TILE = 128
+_NARROW_MAX_DV = 4
+
+
+def _flash_is_narrow(dtype: torch.dtype, d: int, dv: int) -> bool:
+    """Whether K5 takes its narrow kernel for these widths (float32 values
+    1 to 4 wide); raises on widths no K5 kernel takes."""
+    if d % 16 or not 16 <= d <= 128:
+        raise ValueError(f"head width {d} must be a multiple of 16 in [16, 128]")
+    if dtype == torch.float32 and 1 <= dv <= _NARROW_MAX_DV:
+        return True
+    if dv % 16 or not 16 <= dv <= 128:
+        raise ValueError(f"value width {dv} must be a multiple of 16 in [16, 128], or 1 to 4 in float32")
+    return False
+
+
+@functools.lru_cache(maxsize=64)
+def _narrow_parts(b: int, nq: int, nk: int, sms: int) -> int:
+    """Parts S of the key axis for K5's narrow kernel on a card with
+    ``sms`` SMs: its grid is (128-row query tiles) x S x b blocks, one
+    resident per SM, each walking its part's 128-key tiles (part s takes
+    tiles [s T // S, (s + 1) T // S) of the T). S minimises the waves of
+    blocks times the tiles of the longest part, plus a quarter tile per
+    block for loading its q tile and first k tile; ties go to fewer parts."""
+    rows = b * -(-nq // _NARROW_TILE)
+    tiles = -(-nk // _NARROW_TILE)
+    return min(range(1, min(tiles, 65535) + 1), key=lambda s: (-(-rows * s // sms) * (-(-tiles // s) + 0.25), s))
 
 
 def _flash_attend_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -530,20 +567,27 @@ def _flash_attend_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
         raise ValueError(f"q, k and v lie on {q.device}, {k.device}, {v.device}")
     if q.dtype not in (torch.bfloat16, torch.float32) or not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attend takes bf16 or float32, got {q.dtype}/{k.dtype}/{v.dtype}")
-    for name, width in (("head width", d), ("value width", dv)):
-        if width % 16 or not 16 <= width <= 128:
-            raise ValueError(f"{name} {width} must be a multiple of 16 in [16, 128]")
+    narrow = _flash_is_narrow(q.dtype, d, dv)
     if nq < 1 or nk < 1:
         raise ValueError(f"flash_attend needs at least one query and one key, got {nq}, {nk}")
     q, k, v = _kernels.aligned(q), _kernels.aligned(k), _kernels.aligned(v)
     out = torch.empty((b, nq, dv), dtype=v.dtype, device=q.device)
-    status = _kernels.library("flash_attend").atdn_flash_attend(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk, d, dv,
-        float(scale), int(q.dtype == torch.bfloat16), q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if narrow:
+        parts = _narrow_parts(b, nq, nk, torch.cuda.get_device_properties(q.device).multi_processor_count)
+        ws = torch.empty((b, nq, parts, 2 + dv), dtype=torch.float32, device=q.device)  # (m, l, o) per part
+        status = _kernels.library("flash_attend").atdn_flash_attend_narrow(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ws.data_ptr(), out.data_ptr(), b, nq, nk, d, dv,
+            parts, float(scale), q.device.index or 0, stream,
+        )
+    else:
+        status = _kernels.library("flash_attend").atdn_flash_attend(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk, d, dv,
+            float(scale), int(q.dtype == torch.bfloat16), q.device.index or 0, stream,
+        )
     _kernels.check(status, "flash_attend kernel")
     flash_attend.launches += 1
+    flash_attend.narrow_launches += narrow
     return out
 
 

@@ -179,6 +179,9 @@ K2_TOL = {"rtol": 1e-5, "atol": 1e-5}  # both lerp the same bf16 taps in float32
 # max) and the float32 result once; outputs are ~0.01-1
 K5_TOL = {"rtol": 2.0**-7, "atol": 2.0**-8}
 K5_F32_TOL = {"rtol": 1e-5, "atol": 1e-5}  # float32 on both sides, summation order
+# K5's narrow kernel against float64, of the largest value: float32 scores
+# of 128 products and a float32 softmax over 7,392 keys (~1e-6 measured)
+NARROW_F64_REL = 1e-5
 K3_TOL = {"rtol": 2.0**-7, "atol": 1e-5}  # both round one float32 sum: one bf16 ulp
 # K2n: the same two-term float32 sums and bf16 roundings on both sides
 K2N_TOL = {"rtol": 1e-5, "atol": 1e-5}
@@ -586,6 +589,81 @@ def k5_flash_attend(device, n=94 * 308, d=128, seed=5) -> dict:
         "library_ms": time_ms(
             lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=1.0),
             device,
+        ),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def k5_narrow(device, hw8=(48, 154), d=128, seed=27) -> dict:
+    """K5's narrow float32 kernel at GMFlow's KITTI matching: 48 x 154 =
+    7,392 tokens, 128 wide, the 2-column pixel grid as the values; features
+    of GMFlow's magnitude (tokens of norm ~12), f1 a noisy copy of f0 moved
+    by (1, 3) tokens, so the softmax is as sharp as the matching's. Held
+    to float64 (the largest error over the largest value within
+    ``NARROW_F64_REL``); the same error of the float32 plain version, of
+    the reference's float32 form (softmax, then the product with the
+    values) and of the wide float32 kernel on the grid zero-extended to 16
+    columns (GMFlow's call before), which is timed beside it; two calls'
+    bits compared. The bound counts 2 n^2 (d + 2) FLOP, as
+    ``k5_roofline.gmflow``."""
+    from atdn_vslam_torch.ops.attention import _narrow_parts, flash_attend, flash_attend_plain
+    from atdn_vslam_torch.ops.bilinear import coords_grid
+
+    h, w = hw8
+    n = h * w
+    g = torch.Generator(device=device).manual_seed(seed)
+    f0 = torch.randn((1, h, w, d), generator=g, device=device) * (12 / d**0.5)
+    f1 = torch.roll(f0, (1, 3), (1, 2)) + 0.3 * torch.randn((1, h, w, d), generator=g, device=device)
+    q, k = f0.reshape(1, n, d), f1.reshape(1, n, d)
+    v = coords_grid(h, w, device=device).reshape(1, n, 2).contiguous()
+    scale = d**-0.5
+    got = flash_attend(q, k, v, scale)
+    if not torch.equal(got, flash_attend(q, k, v, scale)):
+        raise AssertionError("flash_attend (narrow): two calls on the same inputs differ")
+    padded = torch.nn.functional.pad(v, (0, 14))
+    plain = flash_attend_plain(q, k, v, scale)
+    max_err = float((got - plain).abs().max())
+    s64 = torch.matmul(q.double(), k.double().transpose(1, 2)) * scale
+    want = torch.matmul(torch.softmax(s64, dim=-1), v.double())
+    del s64
+    top = float(want.abs().max())
+
+    def rel64(x):
+        return float((x.double() - want).abs().max()) / top
+
+    err64 = rel64(got)
+    if not err64 <= NARROW_F64_REL:
+        raise AssertionError(f"flash_attend (narrow): {err64} of the largest value from float64, "
+                             f"above {NARROW_F64_REL}")
+    errors = {"plain_max_rel_err_float64": rel64(plain),
+              "softmax_max_rel_err_float64": rel64(torch.softmax(torch.matmul(q, k.transpose(1, 2)) * scale, -1) @ v),
+              "padded_max_rel_err_float64": rel64(flash_attend(q, k, padded, scale)[..., :2])}
+    del want, plain
+    bytes_moved = 4 * (2 * q.numel() + 2 * v.numel())  # q, k, v read, out written
+    bound_ms, bound_by = bound(bytes_moved, 2.0 * n * n * (d + 2), torch.float32)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 132
+    reports = check_ptxas("flash_attend (narrow)", {
+        "kernel": ptxas_report("flash_attend", "flash_narrow_f32_kernelILi2E"),
+        "merge": ptxas_report("flash_attend", "flash_narrow_merge_kernelILi2E"),
+    })
+    return {
+        "name": "flash_attend_narrow",
+        "route": "cuda",
+        "source": "atdn_vslam_torch/csrc/flash_attend.cu",
+        "replaces": "K5's plain-FMA float32 kernel on GMFlow's 2 value columns padded to 16",
+        "shape": [1, n, d], "dv": 2, "dtype": "torch.float32", "tolerance_float64": NARROW_F64_REL,
+        "max_abs_err": max_err, "max_rel_err_float64": err64, **errors,
+        "splits": _narrow_parts(1, n, n, sms),
+        "design": "8 warps x 128 query rows x one of S key parts, 8x8 float32 FMA scores a thread from "
+                  "float4 shared-memory reads, q resident, 2-stage cp.async k/v ring, online softmax in "
+                  "registers per thread, shuffle merge, (m, l, o) scratch merged by a second kernel",
+        "ptxas": reports,
+        "ms": time_ms(lambda: flash_attend(q, k, v, scale), device),
+        "padded_ms": time_ms(lambda: flash_attend(q, k, padded, scale), device),
+        "plain_ms": time_ms(lambda: flash_attend_plain(q, k, v, scale), device, reps=5),
+        # the yardstick only, the port never calls it: float32, (B, heads, N, D) views
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None], scale=scale), device,
         ),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
@@ -1239,6 +1317,7 @@ def gmflow_stream(device, keyframes_path: str, hw=FULL_HW, frames=12, seed=26) -
     run."""
     from atdn_vslam_torch.config import Config, FlowNetConfig, SlamConfig
     from atdn_vslam_torch.models.factory import build_flow_model, build_odometry_model, init_params
+    from atdn_vslam_torch.ops.attention import flash_attend
 
     cfg = Config(keyframes_path=keyframes_path, flow=FlowNetConfig(arch="gmflow", mixed_precision=True),
                  slam=SlamConfig(image_height=hw[0], image_width=hw[1]))
@@ -1249,19 +1328,23 @@ def gmflow_stream(device, keyframes_path: str, hw=FULL_HW, frames=12, seed=26) -
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
+    narrow = flash_attend.narrow_launches
     poses, times = run_stream(rt, clip)
     launches = read_launches()
+    narrow = flash_attend.narrow_launches - narrow
     pairs = frames - 1
     if poses.shape != (frames, 4, 4) or not np.isfinite(poses).all():
         raise AssertionError("gmflow_stream: poses are not finite 4x4 matrices")
     want = launches_of(flash_attend=8 * pairs, flash_attend_regions=6 * pairs)
-    if device.type == "cuda" and launches != want:
-        raise AssertionError(f"gmflow_stream: launches {launches} for {pairs} frame pairs, not {want}")
+    if device.type == "cuda" and (launches != want or narrow != 2 * pairs):
+        raise AssertionError(f"gmflow_stream: launches {launches}, {narrow} of K5's narrow kernel, for {pairs} "
+                             f"frame pairs, not {want} and {2 * pairs}")
     steady = times[min(3, frames - 1):]  # the first pairs include cuDNN's autotuning
     ms = float(np.mean(steady))
     return {
         "hw": list(hw), "arch": "gmflow", "frames": frames, "dtype": "bfloat16",
-        "launches": launches, "ms_per_frame": ms, "frame_ms": times, "steady_frames": len(steady),
+        "launches": launches, "narrow_launches": narrow, "ms_per_frame": ms, "frame_ms": times,
+        "steady_frames": len(steady),
         "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                          if device.type == "cuda" else None),
         "final_translation": poses[-1, :3, 3].tolist(),
@@ -3344,7 +3427,7 @@ def main(argv=None) -> int:
     emit("build", **results["build"])
 
     kernels = [k1_attention_probs(device), k2_corr_lookup(device)]
-    kernels += [k5_flash_attend(device), k3_corr_dot(device), k5r_flash_attend_regions(device)]
+    kernels += [k5_flash_attend(device), k3_corr_dot(device), k5r_flash_attend_regions(device), k5_narrow(device)]
     torch.cuda.empty_cache()
     kernels += [k2n_nlanes(device), k4_apply_probs(device), k2s_slab(device), k3t_corr_dot_tiled(device)]
     torch.cuda.empty_cache()
@@ -3408,6 +3491,10 @@ def main(argv=None) -> int:
               "corr_lookup_slab": "entry_points", "corr_dot_tiled": "entry_points",
               "flash_attend_regions": "gmflow_stream"}
     for k in kernels:
+        if k["name"] == "flash_attend_narrow":  # counted apart from K5's launches
+            k["launches_from"] = "gmflow_stream"
+            k["launches"] = results["gmflow_stream"]["narrow_launches"]
+            continue
         k["launches_from"] = driver[k["name"]]
         k["launches"] = results[driver[k["name"]]]["launches"][k["name"]]
         if k["name"] == "flash_attend":  # GMFlow's path drives it too
@@ -3426,7 +3513,7 @@ def main(argv=None) -> int:
         "corr_lookup_nlanes": serve["corr_nlanes"]["launches_per_frame"]["corr_lookup_nlanes"],
     }
     for k in kernels:
-        k["op"] = f"atdn::{k['name']}"
+        k["op"] = "atdn::flash_attend" if k["name"] == "flash_attend_narrow" else f"atdn::{k['name']}"
         if k["name"] in serve_launches:
             k["launches_serving"] = serve_launches[k["name"]]
         if k["name"] == "corr_lookup":
@@ -3454,7 +3541,8 @@ def main(argv=None) -> int:
               "launches_positional", "launches_parallel",
               "backward_ms", "backward_bound_ms",
               "backward_bound_by", "design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
-              "max_abs_err_2x")
+              "max_abs_err_2x", "padded_ms", "max_rel_err_float64", "plain_max_rel_err_float64",
+              "softmax_max_rel_err_float64", "padded_max_rel_err_float64")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extras if key in k}
                                   for k in kernels]}))
     print(card)

@@ -200,6 +200,53 @@ def test_flash_attend_kernel(cuda, dtype, nq, nk, d, dv):
         torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=2.0**-8)
 
 
+def _float64_attend(q, k, v, scale):
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) * scale
+    return torch.matmul(torch.softmax(s, dim=-1), v.double())
+
+
+@pytest.mark.parametrize(
+    "b,nq,nk,dv",
+    [(1, 7392, 7392, 2), (1, 1000, 7392, 2), (1, 7392, 300, 2), (2, 777, 1100, 2), (1, 300, 129, 1),
+     (1, 300, 1000, 3), (2, 130, 4097, 4)],
+)
+def test_flash_attend_narrow_kernel(cuda, b, nq, nk, dv):
+    """K5's narrow kernel (float32, Dv of 1 to 4) against float64: GMFlow's
+    matching at KITTI (7,392 tokens, 128 wide, Dv 2); Nq != Nk; Nk no
+    multiple of the 128-key tile or of the split (129: a last tile of one
+    key); batch 2. Features of GMFlow's magnitude (tokens of norm ~12),
+    each query a noisy copy of one key, so the softmax is as sharp as the
+    matching's; the first queries' copies lie on both sides of every
+    boundary between the key parts. Within 1e-5 of the largest value, as
+    the float32 plain version; two calls give the same bits; each counts
+    one K5 launch and one narrow launch."""
+    from atdn_vslam_torch.ops.attention import _narrow_parts
+
+    d = 128
+    g = torch.Generator().manual_seed(nq + nk + dv)
+    k = torch.randn((b, nk, d), generator=g) * (12 / d**0.5)
+    best = torch.randint(0, nk, (b, nq), generator=g)
+    parts = _narrow_parts(b, nq, nk, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    tiles = -(-nk // 128)
+    edges = [p * tiles // parts * 128 for p in range(1, parts)]
+    edge_keys = torch.tensor([x for e in edges for x in (e - 1, e)] or [0])[:nq]
+    best[:, : len(edge_keys)] = edge_keys
+    q = torch.gather(k, 1, best[..., None].expand(-1, -1, d)) + 0.3 * torch.randn((b, nq, d), generator=g)
+    v = torch.randn((b, nk, dv), generator=g) * 100
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    before = (flash_attend.launches, flash_attend.narrow_launches)
+    got = flash_attend(q, k, v, d**-0.5)
+    again = flash_attend(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert (flash_attend.launches, flash_attend.narrow_launches) == (before[0] + 2, before[1] + 2)
+    assert got.shape == (b, nq, dv) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    want = _float64_attend(q, k, v, d**-0.5)
+    scale = float(want.abs().max())
+    assert float((got.double() - want).abs().max()) < 1e-5 * scale
+    assert float((flash_attend_plain(q, k, v, d**-0.5).double() - want).abs().max()) < 1e-5 * scale
+
+
 def test_flash_attend_kernel_takes_strided_values(cuda):
     """v as the transposed view the aggregator hands over."""
     rng = np.random.default_rng(3)

@@ -111,3 +111,43 @@ def test_attend_dispatches_by_token_count(monkeypatch):
     monkeypatch.setattr(att, "_FLASH_MIN_TOKENS", 21)
     att.attend(q, q, q, use_pallas=True)
     assert calls == ["ref", "k5", "ref", "k5"]
+
+
+@pytest.mark.parametrize("dv", [1, 2, 3, 4])
+def test_flash_attend_takes_narrow_float32_values(dv):
+    """float32 values 1 to 4 wide go to K5's narrow kernel; on the CPU the
+    wrapper is the plain version, whose columns equal those of the same
+    values zero-extended to 16 (the width K5 took before)."""
+    assert att._flash_is_narrow(torch.float32, 128, dv)
+    q, k, v = _t(*_qkv(7, 70, 300, 32, dv))
+    got = att.flash_attend(q, k, v)
+    wide = att.flash_attend_plain(q, k, torch.nn.functional.pad(v, (0, 16 - dv)))
+    torch.testing.assert_close(got, wide[..., :dv], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,d,dv,narrow", [
+    (torch.float32, 128, 16, False), (torch.float32, 16, 128, False), (torch.bfloat16, 128, 128, False),
+    (torch.float32, 128, 5, None), (torch.float32, 128, 8, None), (torch.float32, 128, 0, None),
+    (torch.bfloat16, 128, 2, None), (torch.float32, 24, 2, None), (torch.float32, 144, 16, None),
+])
+def test_flash_attend_widths(dtype, d, dv, narrow):
+    """The widths K5's kernels take: D and Dv multiples of 16 in [16, 128]
+    (the wide kernels), or float32 Dv of 1 to 4 (the narrow kernel);
+    anything else raises before a launch."""
+    if narrow is None:
+        with pytest.raises(ValueError):
+            att._flash_is_narrow(dtype, d, dv)
+    else:
+        assert att._flash_is_narrow(dtype, d, dv) is narrow
+
+
+@pytest.mark.parametrize("b,nq,nk,sms", [(1, 7392, 7392, 132), (2, 777, 1100, 132), (1, 300, 129, 132),
+                                         (1, 1, 1, 132), (1, 100_000, 200, 132), (3, 28952, 28952, 114)])
+def test_narrow_parts(b, nq, nk, sms):
+    """The key split of the narrow kernel: every part holds a 128-key tile;
+    GMFlow's KITTI calls (7,392 tokens, 58 row blocks and 58 key tiles)
+    take 9 parts on the H100's 132 SMs, 522 blocks: 2 or more per SM."""
+    parts = att._narrow_parts(b, nq, nk, sms)
+    assert 1 <= parts <= -(-nk // 128)
+    if (b, nq, nk, sms) == (1, 7392, 7392, 132):
+        assert parts == 9 and 58 * parts >= 2 * sms

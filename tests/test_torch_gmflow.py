@@ -19,9 +19,18 @@ import torch
 
 from atdn_vslam_torch.config import Config, FlowNetConfig, SlamConfig
 from atdn_vslam_torch.models.factory import build_flow_model, init_params
-from atdn_vslam_torch.models.flow.gmflow import GMFlow, TransformerLayer, partition, shift_regions, unpartition
+from atdn_vslam_torch.models.flow.gmflow import (
+    FeatureFlowAttention,
+    GlobalMatching,
+    GMFlow,
+    TransformerLayer,
+    partition,
+    shift_regions,
+    unpartition,
+)
 from atdn_vslam_torch.models.flow.network import RAFTGMA
-from atdn_vslam_torch.ops.attention import flash_attend_regions, flash_attend_regions_plain
+from atdn_vslam_torch.ops.attention import flash_attend_plain, flash_attend_regions, flash_attend_regions_plain
+from atdn_vslam_torch.ops.bilinear import coords_grid
 from perfbench.reference import gmflow as ref_gmflow
 from perfbench.reference.atdnvo import ATDNVO as RefATDNVO
 from perfbench.reference.atdnvo import pose_matrix
@@ -85,6 +94,28 @@ def test_gmflow_matches_the_reference(stage):
     upsampled flow."""
     got, want = _stages()
     assert _rel(got[stage], want[stage]) < TOL
+
+
+def test_matching_and_propagation_equal_the_padded_values():
+    """The matching and the propagation hand K5 their 2 value columns as
+    they are; on the CPU their flows equal K5's plain version on those
+    columns zero-extended to 16, as GMFlow passed them before, on
+    features of GMFlow's magnitude (tokens of norm ~12)."""
+    b, h, w, c = 1, 12, 20, 128
+    g = torch.Generator().manual_seed(4)
+    f0, f1 = (torch.randn((b, h, w, c), generator=g) * (12 / c**0.5) for _ in range(2))
+    grid = coords_grid(h, w).reshape(1, h * w, 2)
+    padded = flash_attend_plain(f0.reshape(b, h * w, c), f1.reshape(b, h * w, c),
+                                torch.nn.functional.pad(grid, (0, 14)), c**-0.5)[..., :2]
+    matched = GlobalMatching()(f0, f1)
+    assert _rel(matched, (padded - grid).reshape(b, h, w, 2)) < 1e-6
+    propagation = FeatureFlowAttention(c)
+    with torch.no_grad():
+        got = propagation(f0, matched)
+        q = propagation.q_proj(f0.reshape(b, h * w, c))
+        v = torch.nn.functional.pad(matched.reshape(b, h * w, 2), (0, 14))
+        want = flash_attend_plain(q, propagation.k_proj(q), v, c**-0.5)[..., :2].reshape(b, h, w, 2)
+    assert _rel(got, want) < 1e-6
 
 
 def _published_mask_attention(q, k, v, regions):
@@ -226,8 +257,9 @@ def test_k5r_kernel_matches_its_plain_version(dtype, hw):
 def test_gmflow_on_the_card(mixed_precision):
     """A frame pair through GMFlow on the card: the shifted layers launch
     K5r once each (6), the unshifted layers, the matching and the
-    propagation K5 once each (8); in float32 the flows equal the CPU's
-    (1e-4 of the largest), in bf16 they stay finite."""
+    propagation K5 once each (8), the last two through its narrow kernel
+    (2); in float32 the flows equal the CPU's (1e-4 of the largest), in
+    bf16 they stay finite."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from atdn_vslam_torch.ops.attention import flash_attend
@@ -239,11 +271,12 @@ def test_gmflow_on_the_card(mixed_precision):
     card = build_flow_model(config, "cuda")
     card.load_state_dict(cpu.state_dict())
     im1, im2 = _frames()
-    k5, k5r = flash_attend.launches, flash_attend_regions.launches
+    k5, k5r, narrow = flash_attend.launches, flash_attend_regions.launches, flash_attend.narrow_launches
     with torch.no_grad():
         low, up = card(im1.cuda(), im2.cuda())
         torch.cuda.synchronize()
         assert (flash_attend.launches - k5, flash_attend_regions.launches - k5r) == (8, 6)
+        assert flash_attend.narrow_launches - narrow == 2
         if mixed_precision:
             assert torch.isfinite(up).all()
         else:
