@@ -6,19 +6,19 @@ positional modes.
 ``position_only`` takes the bias alone (ref: gma.py:62-71);
 :class:`RelPosEmb` computes that bias from learned per-axis embeddings,
 the JAX package's ``RelPosEmb`` (``models/flow/gma.py:30-68``). Both
-modes materialise a (B*heads, N, N) float32 bias, so, as in the JAX
-package, they are refused above ``_MATERIALIZE_MAX_TOKENS`` tokens, and
-their attention takes the torch path (scores plus bias, softmax), never
-kernel K1 or K5 (``ops/attention.py``).
+modes materialise a (B*heads, N, N) float32 bias and attend through the
+torch path (scores plus bias, softmax), never kernel K1 or K5.
+
+Which kernel attends, and how often, is chosen once per frame pair by
+``ops/attention.py`` :func:`~atdn_vslam_torch.ops.attention.gma_attention`
+(which also refuses the positional modes above 8192 tokens, as the JAX
+package does); :class:`Aggregate` calls what it returns.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
-
-from atdn_vslam_torch.ops import attention as _attention
-from atdn_vslam_torch.ops.attention import apply_attention_probs, attend, sharded_flash_attend
 
 
 class RelPosEmb(nn.Module):
@@ -80,93 +80,36 @@ class AttentionQK(nn.Module):
             return x.reshape(b * self.heads, h * w, self.dim_head)
 
         q = tokens(q) * self.dim_head**-0.5
-        if self.pos_emb is None:
-            return q, tokens(k), None
-        if h * w > _attention._MATERIALIZE_MAX_TOKENS:
-            raise ValueError(
-                f"positional attention at {h * w} tokens would materialize a dense (N, N) "
-                f"bias (limit {_attention._MATERIALIZE_MAX_TOKENS}); use content-only "
-                "attention at this resolution"
-            )
-        return q, tokens(k), self.pos_emb(q, h, w)
+        return q, tokens(k), None if self.pos_emb is None else self.pos_emb(q, h, w)
 
 
 class Aggregate(nn.Module):
     """out = fmap + gamma * proj(attention @ to_v(fmap)), the learned
-    gamma-gated residual (ref: gma.py:79-115); gamma starts at 0.
+    gamma-gated residual (ref: gma.py:79-115); gamma starts at 0."""
 
-    :param use_pallas: passed to :func:`attend` when the caller hands
-        over q and k (per-iteration attention).
-    :param position_only: the scores are the positional bias alone."""
-
-    def __init__(
-        self,
-        dim: int = 128,
-        heads: int = 1,
-        dim_head: int = 128,
-        use_pallas: bool | None = None,
-        position_only: bool = False,
-    ):
+    def __init__(self, dim: int = 128, heads: int = 1, dim_head: int = 128):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
-        self.use_pallas = use_pallas
-        self.position_only = position_only
         inner = heads * dim_head
         self.to_v = nn.Conv2d(dim, inner, 1, bias=False)
         self.gamma = nn.Parameter(torch.zeros(1))
         self.project = nn.Conv2d(inner, dim, 1, bias=False) if dim != inner else None
 
-    def forward(
-        self, attn: torch.Tensor | tuple[torch.Tensor, torch.Tensor, torch.Tensor | None], fmap: torch.Tensor
-    ) -> torch.Tensor:
-        """:param attn: the (B*heads, H, W, N_pad) spatial probabilities
-            materialised once per frame pair, or the triple (q, k, bias)
-            of :class:`AttentionQK` to attend anew (ref: gma.py:167-173).
+    def forward(self, attn, fmap: torch.Tensor, band: tuple[int, int] | None = None) -> torch.Tensor:
+        """:param attn: the frame pair's ``attn(v) -> out`` of
+            :func:`~atdn_vslam_torch.ops.attention.gma_attention`, out
+            (B*heads, h, w, d) or (B*heads, h*w, d).
+        :param band: rows [lo, hi) of ``fmap`` (B, C, H, W) whose aggregate
+            ``attn`` gives (the row split); the values come from all of it.
         """
         b, _, h, w = fmap.shape
         v = self.to_v(fmap).reshape(b * self.heads, self.dim_head, h * w).transpose(1, 2)
-        if isinstance(attn, torch.Tensor):
-            out = apply_attention_probs(attn, v)  # (b*heads, h, w, d)
-        else:
-            q, k, bias = attn
-            out = attend(  # (b*heads, h*w, d)
-                q, k, v, scale=1.0, use_pallas=self.use_pallas, bias=bias,
-                position_only=self.position_only,
-            )
-        return self._residual(fmap, out)
-
-    def _residual(self, fmap: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-        """fmap + gamma * proj(out), out (b*heads, h, w, d) or (b*heads, h*w, d)."""
-        b, _, h, w = fmap.shape
+        out = attn(v)
+        if band is not None:
+            fmap = fmap[:, :, band[0] : band[1]]
+            h = band[1] - band[0]
         out = out.reshape(b, self.heads, h, w, self.dim_head).permute(0, 1, 4, 2, 3)
         out = out.reshape(b, self.heads * self.dim_head, h, w)
         if self.project is not None:
             out = self.project(out)
         return fmap + self.gamma.to(fmap.dtype) * out
-
-    def forward_rows(
-        self,
-        attn: torch.Tensor | tuple[torch.Tensor, torch.Tensor, None],
-        fmap: torch.Tensor,
-        band: tuple[int, int],
-        mesh,
-        axis: str,
-        flash: bool,
-    ) -> torch.Tensor:
-        """The aggregate of rows [lo, hi) of ``fmap`` (B, C, H, W), the
-        values from all of it: ``attn`` is the band's probabilities
-        (B*heads, hi - lo, W, N_pad), read by ``torch.matmul``, or the
-        triple (q of the band, k, None), attended through the row-split
-        K5 (``flash``) or :func:`attend_reference`."""
-        b, _, h, w = fmap.shape
-        lo, hi = band
-        v = self.to_v(fmap).reshape(b * self.heads, self.dim_head, h * w).transpose(1, 2)
-        if isinstance(attn, torch.Tensor):
-            out = apply_attention_probs(attn, v)
-        elif flash:
-            out = sharded_flash_attend(
-                attn[0], attn[1], v, scale=1.0, mesh=mesh, axis=axis, n_rows=h, row_len=w
-            )
-        else:
-            out = attend(attn[0], attn[1], v, scale=1.0, use_pallas=False)
-        return self._residual(fmap[:, :, lo:hi], out)

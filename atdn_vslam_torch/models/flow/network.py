@@ -14,7 +14,8 @@ encoder, the correlation pyramid, then ``iters`` times the window
 lookup (kernel K2) and the update block, and last the upsample-mask
 head, once (with ``corr_nlanes`` the lookup of levels 1-3 is kernel
 K2n). The attention follows the JAX package's schedule by token
-count N = H/8 * W/8 (``network.py:349-364``): up to 8192 tokens the
+count N = H/8 * W/8 (``network.py:349-364``), chosen once per pair by
+``ops/attention.py`` ``gma_attention``: up to 8192 tokens the
 probabilities are materialised once per pair (kernel K1); above, every
 iteration attends anew, through the flash kernel K5 from 16384 tokens
 on (2x KITTI, 752x2464, has 28952). The positional modes
@@ -64,8 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from atdn_vslam_torch.models.flow.extractor import BasicEncoder
 from atdn_vslam_torch.models.flow.gma import AttentionQK
 from atdn_vslam_torch.models.flow.update import ROW_REACH, GMAUpdateBlock, row_window
-from atdn_vslam_torch.ops import attention as _attention
-from atdn_vslam_torch.ops.attention import attention_probs_spatial, sharded_flash_probs_spatial
+from atdn_vslam_torch.ops.attention import gma_attention
 from atdn_vslam_torch.ops.bilinear import coords_grid
 from atdn_vslam_torch.ops.corr_lookup import build_corr_pyramid, lookup_corr_pyramid
 from atdn_vslam_torch.ops.corr_lookup_nlanes import (
@@ -137,10 +137,7 @@ class RAFTGMA(nn.Module):
         self.fnet = BasicEncoder(256, "instance")
         self.cnet = BasicEncoder(hidden_dim + context_dim, "batch")
         self.position_only = position_only
-        self.update_block = GMAUpdateBlock(  # False reaches attend as None
-            hidden_dim, heads, corr_levels, corr_radius,
-            use_pallas=None if use_pallas is False else use_pallas, position_only=position_only,
-        )
+        self.update_block = GMAUpdateBlock(hidden_dim, heads, corr_levels, corr_radius)
         self.att = AttentionQK(
             context_dim, heads, 128, position_only=position_only,
             position_and_content=position_and_content,
@@ -205,12 +202,12 @@ class RAFTGMA(nn.Module):
             with span("atdn::flow.encode"):
                 return _nhwc(self.fnet(self._prep(image1)))
         if not test_mode:
-            _, pyramid, _, net, inp, attn, coords0, coords1 = self._encode(
+            _, pyramid, lookup, net, inp, attn, coords0, coords1 = self._encode(
                 image1, image2, test_mode, flow_init, fmap1, fmap2
             )
             preds = []
             for _ in range(self.iters):
-                args = (net, coords1, coords0, inp, attn, pyramid)
+                args = (lookup, pyramid, attn, inp, coords0, net, coords1)
                 if self.remat:
                     net, coords1, flow_up = checkpoint(self._train_iteration, *args, use_reentrant=False)
                 else:
@@ -223,12 +220,7 @@ class RAFTGMA(nn.Module):
             )
         for _ in range(self.iters):
             with span("atdn::flow.update"):
-                corr = lookup(pyramid, coords1, self.corr_radius)
-                flow = coords1 - coords0
-                net, delta_flow = self.update_block(
-                    net, inp, _nchw(corr).to(self.dtype), _nchw(flow).to(self.dtype), attn
-                )
-                coords1 = coords1 + _nhwc(delta_flow).float()
+                net, coords1 = self._iteration(lookup, pyramid, attn, inp, coords0, net, coords1)
 
         with span("atdn::flow.upsample"):
             flow_low = coords1 - coords0
@@ -240,8 +232,8 @@ class RAFTGMA(nn.Module):
 
     def _encode(self, image1, image2, test_mode, flow_init, fmap1, fmap2):
         """Everything before the iterations: the features, the volume, the
-        context and the attention (K1 where materialised); (f2, pyramid,
-        lookup, net, inp, attn, coords0, coords1)."""
+        context and the frame pair's attention (K1 where materialised);
+        (f2, pyramid, lookup, net, inp, attn, coords0, coords1)."""
         x2 = self._prep(image2)
         if fmap1 is None:
             if fmap2 is not None:
@@ -265,12 +257,7 @@ class RAFTGMA(nn.Module):
         net, inp = torch.tanh(net), F.relu(inp)
         q, k, bias = self.att(inp)
         b, _, h8, w8 = net.shape
-        if self.use_pallas is not True and h8 * w8 <= _attention._MATERIALIZE_MAX_TOKENS:
-            attn = attention_probs_spatial(
-                q, k, h8, w8, scale=1.0, bias=bias, position_only=self.position_only
-            )
-        else:  # attend anew in every iteration (the aggregator dispatches)
-            attn = (q, k, bias)
+        attn = gma_attention(q, k, bias, h8, w8, use_pallas=self.use_pallas, position_only=self.position_only)
 
         coords0 = coords_grid(h8, w8, device=net.device)[None]
         coords1 = coords0.expand(b, h8, w8, 2)
@@ -296,13 +283,7 @@ class RAFTGMA(nn.Module):
         pyramid = build_corr_pyramid(
             _nhwc(f1)[:, c_lo:c_hi], _nhwc(f2), self.corr_levels, dtype=self.dtype, use_pallas=self.use_pallas
         )
-        q_band = q[:, lo * w8 : hi * w8]
-        flash = False
-        if self.use_pallas is not True and h8 * w8 <= _attention._MATERIALIZE_MAX_TOKENS:
-            attn = sharded_flash_probs_spatial(q_band, k, h8, w8, scale=1.0, mesh=mesh, axis=axis)
-        else:  # attend anew in every iteration, K5 by the whole frame's token count
-            attn = (q_band, k, None)
-            flash = self.use_pallas is True or h8 * w8 >= _attention._FLASH_MIN_TOKENS
+        attn = gma_attention(q, k, None, h8, w8, use_pallas=self.use_pallas, band=(lo, hi), mesh=mesh, axis=axis)
 
         def gather(x):
             return gather_bands(x, group, dim=2, n=h8)
@@ -313,7 +294,7 @@ class RAFTGMA(nn.Module):
             corr = lookup_corr_pyramid(pyramid, coords1[:, c_lo:c_hi].contiguous(), self.corr_radius)
             flow = _nchw(coords1 - coords0).to(self.dtype)
             net_band, delta = self.update_block.forward_rows(
-                net, inp, _nchw(corr).to(self.dtype), flow, attn, (lo, hi), gather, flash, mesh, axis
+                net, inp, _nchw(corr).to(self.dtype), flow, attn, (lo, hi), gather
             )
             net = gather(net_band)
             coords1 = _nhwc(gather(_nchw(coords1[:, lo:hi] + _nhwc(delta).float())))
@@ -321,15 +302,19 @@ class RAFTGMA(nn.Module):
         mask = _nhwc(self.update_block.upsample_mask(net)).float()
         return flow_low, convex_upsample(flow_low, mask)
 
-    def _train_iteration(self, net, coords1, coords0, inp, attn, pyramid):
-        """One train-mode iteration (JAX ``_UpdateStep`` with
-        ``upsample_in_scan``): (hidden state, coords1, upsampled flow)."""
-        coords1 = coords1.detach()
-        corr = lookup_corr_pyramid(pyramid, coords1, self.corr_radius)
+    def _iteration(self, lookup, pyramid, attn, inp, coords0, net, coords1):
+        """One update, test mode and train mode alike: the window lookup,
+        the update block, the new coordinates; (hidden state, coords1)."""
+        corr = lookup(pyramid, coords1, self.corr_radius)
         flow = coords1 - coords0
         net, delta_flow = self.update_block(
             net, inp, _nchw(corr).to(self.dtype), _nchw(flow).to(self.dtype), attn
         )
-        coords1 = coords1 + _nhwc(delta_flow).float()
+        return net, coords1 + _nhwc(delta_flow).float()
+
+    def _train_iteration(self, lookup, pyramid, attn, inp, coords0, net, coords1):
+        """One train-mode iteration (JAX ``_UpdateStep`` with
+        ``upsample_in_scan``): (hidden state, coords1, upsampled flow)."""
+        net, coords1 = self._iteration(lookup, pyramid, attn, inp, coords0, net, coords1.detach())
         mask = _nhwc(self.update_block.upsample_mask(net)).float()
         return net, coords1, convex_upsample(coords1 - coords0, mask)

@@ -108,8 +108,6 @@ class GMAUpdateBlock(nn.Module):
         heads: int = 1,
         corr_levels: int = 4,
         corr_radius: int = 4,
-        use_pallas: bool | None = None,
-        position_only: bool = False,
     ):
         super().__init__()
         self.encoder = BasicMotionEncoder(corr_levels, corr_radius)
@@ -118,9 +116,7 @@ class GMAUpdateBlock(nn.Module):
         self.mask = nn.Sequential(
             nn.Conv2d(128, 256, 3, padding=1), nn.ReLU(inplace=True), nn.Conv2d(256, 64 * 9, 1)
         )
-        self.aggregator = Aggregate(
-            dim=128, heads=heads, dim_head=128, use_pallas=use_pallas, position_only=position_only
-        )
+        self.aggregator = Aggregate(dim=128, heads=heads, dim_head=128)
 
     def forward(
         self,
@@ -128,10 +124,10 @@ class GMAUpdateBlock(nn.Module):
         inp: torch.Tensor,
         corr: torch.Tensor,
         flow: torch.Tensor,
-        attn: torch.Tensor | tuple[torch.Tensor, torch.Tensor, torch.Tensor | None],
+        attn,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """:param attn: the materialised probabilities or the (q, k, bias)
-        triple, passed through to :class:`Aggregate`."""
+        """:param attn: the frame pair's ``attn(v) -> out``
+        (``ops/attention.py`` ``gma_attention``), passed to :class:`Aggregate`."""
         motion = self.encoder(flow, corr)
         motion_global = self.aggregator(attn, motion)
         net = self.gru(net, torch.cat([inp, motion, motion_global], dim=1))
@@ -146,17 +142,13 @@ class GMAUpdateBlock(nn.Module):
         attn,
         band: tuple[int, int],
         gather,
-        flash: bool,
-        mesh,
-        axis: str,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """One update of rows band = [lo, hi) of the H rows.
 
         :param net, inp, flow: the whole hidden state, context features
             and flow, (B, C, H, W).
         :param corr: the lookup of rows ``row_window(lo, hi, ROW_REACH["corr"], H)``.
-        :param attn: the band's part of the attention
-            (:meth:`Aggregate.forward_rows`).
+        :param attn: the band's attention, ``gma_attention(..., band=band)``.
         :param gather: band (B, C, hi - lo, W) -> the whole (B, C, H, W),
             every rank's band in order (``parallel.distributed.gather_bands``).
         :return: the band's new hidden state and delta flow.
@@ -172,7 +164,7 @@ class GMAUpdateBlock(nn.Module):
         feats = torch.cat([_rows(cor, c_lo, m_lo, m_hi), _rows(flo, f_lo, m_lo, m_hi)], dim=1)
         out = _rows(F.relu(enc.conv(feats)), m_lo, lo, hi)
         motion = gather(torch.cat([out, flow[:, :, lo:hi]], dim=1))
-        motion_global = gather(self.aggregator.forward_rows(attn, motion, band, mesh, axis, flash))
+        motion_global = gather(self.aggregator(attn, motion, band))
         g_lo, g_hi = row_window(lo, hi, ROW_REACH["gru"] + ROW_REACH["head"], h)
         x = torch.cat([inp, motion, motion_global], dim=1)[:, :, g_lo:g_hi]
         net = self.gru(net[:, :, g_lo:g_hi], x)

@@ -1,5 +1,6 @@
 """GMA attention, on the JAX package's schedule by token count N
-(``atdn_vslam_tpu/ops/attention.py:198,206``, ``network.py:349-364``):
+(``atdn_vslam_tpu/ops/attention.py:198,206``, ``network.py:349-364``),
+which :func:`gma_attention` applies once per frame pair for the flow net:
 
 - N <= :data:`_MATERIALIZE_MAX_TOKENS`: the probabilities softmax(q k^T)
   are materialised once per frame pair in the spatial layout (kernel K1)
@@ -57,6 +58,7 @@ package takes XLA's (``attention.py:682-748,954-955``).
 from __future__ import annotations
 
 import functools
+from collections.abc import Callable
 
 import torch
 import torch.nn.functional as F
@@ -259,13 +261,7 @@ def attention_probs_biased(
 
 
 def attention_probs_spatial(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    h: int,
-    w: int,
-    scale: float | None = None,
-    bias: torch.Tensor | None = None,
-    position_only: bool = False,
+    q: torch.Tensor, k: torch.Tensor, h: int, w: int, scale: float | None = None
 ) -> torch.Tensor:
     """K1: softmax(scale * q k^T) as (B, h, w, N_pad), differentiable in
     q and k.
@@ -275,13 +271,8 @@ def attention_probs_spatial(
     through ``atdn::attention_probs`` (bf16 or float32 inputs, float32
     accumulation) and counts one launch, or raises. The CUDA forward goes
     through :class:`_AttentionProbs`, whose backward is the JAX package's
-    VJP. With a positional ``bias`` (B, N, N) or ``position_only``, the
-    probabilities are :func:`attention_probs_biased`, (B, h, w, N), on
-    every device.
+    VJP. A positional bias takes :func:`attention_probs_biased` instead.
     """
-    if bias is not None or position_only:
-        scale = q.shape[-1] ** -0.5 if scale is None else scale
-        return attention_probs_biased(q, k, h, w, scale, bias, position_only)
     if q.device.type == "cpu":
         return attention_probs_spatial_plain(q, k, h, w, scale)
     _kernels.require_cuda("attention_probs_spatial", q)
@@ -772,3 +763,58 @@ def attend(
     if use_pallas:
         return flash_attend(q, k, v, scale)
     return attend_reference(q, k, v, scale)
+
+
+def gma_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    bias: torch.Tensor | None,
+    h: int,
+    w: int,
+    *,
+    use_pallas: bool | None = None,
+    position_only: bool = False,
+    band: tuple[int, int] | None = None,
+    mesh=None,
+    axis: str = "model",
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """GMA's attention for one frame pair, its kernel chosen here once:
+    returns ``attn(v) -> out``, which the update block calls in every
+    iteration with that iteration's values v (B, N, D).
+
+    :param q, k: (B, N, D) of the h x w tokens, q pre-scaled (scale 1).
+    :param bias: the positional (B, N, N) bias, or None.
+    :param use_pallas: ``True`` attends anew in every iteration through K5
+        at any N (the positional modes through :func:`attend_reference`);
+        ``None`` or ``False`` follow the schedule by token count above.
+    :param band: rows [lo, hi) of the h: this rank's band of the queries
+        over ``mesh``'s ``axis`` (content-only); out is the band's.
+    :return: out (B, h, w, D) or (B, N, D), of the band's rows with ``band``.
+    """
+    n = h * w
+    forced = use_pallas is True
+    if bias is not None or position_only:
+        if band is not None:
+            raise ValueError("the row-split attention is content-only")
+        if n > _MATERIALIZE_MAX_TOKENS:
+            raise ValueError(
+                f"positional attention at {n} tokens would materialize a dense (N, N) "
+                f"bias (limit {_MATERIALIZE_MAX_TOKENS}); use content-only "
+                "attention at this resolution"
+            )
+        if forced:
+            return lambda v: attend_reference(q, k, v, 1.0, bias, position_only)
+        probs = attention_probs_biased(q, k, h, w, 1.0, bias, position_only)
+        return lambda v: apply_attention_probs(probs, v)
+    if band is not None:
+        q = q[:, band[0] * w : band[1] * w]
+    if not forced and n <= _MATERIALIZE_MAX_TOKENS:
+        if band is None:
+            probs = attention_probs_spatial(q, k, h, w, 1.0)
+        else:
+            probs = sharded_flash_probs_spatial(q, k, h, w, 1.0, mesh=mesh, axis=axis)
+        return lambda v: apply_attention_probs(probs, v)
+    flash = forced or n >= _FLASH_MIN_TOKENS  # by the whole frame's tokens, band or not
+    if band is not None and flash:
+        return lambda v: sharded_flash_attend(q, k, v, 1.0, mesh=mesh, axis=axis, n_rows=h, row_len=w)
+    return lambda v: attend(q, k, v, 1.0, use_pallas=flash)

@@ -2,9 +2,12 @@
 package, on the CPU: ``flash_attend_plain`` against the Pallas
 ``flash_attend`` in interpret mode (square, ragged and rectangular),
 ``attend`` and ``attend_reference`` against the JAX
-``attend_reference``. Inputs are made with numpy from a seed; float32
+``attend_reference``, and the flow net's per-pair choice
+``gma_attention``. Inputs are made with numpy from a seed; float32
 unless a test says otherwise.
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -111,6 +114,70 @@ def test_attend_dispatches_by_token_count(monkeypatch):
     monkeypatch.setattr(att, "_FLASH_MIN_TOKENS", 21)
     att.attend(q, q, q, use_pallas=True)
     assert calls == ["ref", "k5", "ref", "k5"]
+
+
+# gma_attention's table at 4 x 5 = 20 tokens, reached by moving the token
+# constants: (keyword arguments, materialise limit, flash threshold, the
+# plain functions' calls per pair for 3 iterations); "bias" stands for a
+# positional bias, "band" for rows [2, 4) on rank 1 of 2
+GMA_ITERS = 3
+GMA_TABLE = {
+    "materialised": ({}, 8192, 16384, {"attention_probs_spatial_plain": 1, "apply_attention_probs": GMA_ITERS}),
+    "per_iteration_reference": ({}, 0, 16384, {"attend_reference": GMA_ITERS}),
+    "per_iteration_flash": ({}, 0, 20, {"flash_attend_plain": GMA_ITERS}),
+    "use_pallas": ({"use_pallas": True}, 8192, 16384, {"flash_attend_plain": GMA_ITERS}),
+    "positional_materialised": (
+        {"bias": True}, 8192, 16384, {"attention_probs_biased": 1, "apply_attention_probs": GMA_ITERS}
+    ),
+    "positional_use_pallas": ({"bias": True, "use_pallas": True}, 8192, 16384, {"attend_reference": GMA_ITERS}),
+    "positional_above_limit": ({"bias": True}, 19, 16384, None),
+    "band_materialised": (
+        {"band": True}, 8192, 16384, {"attention_probs_spatial_plain": 1, "apply_attention_probs": GMA_ITERS}
+    ),
+    "band_flash": ({"band": True}, 0, 20, {"flash_attend_plain": GMA_ITERS}),
+    "band_reference": ({"band": True}, 0, 16384, {"attend_reference": GMA_ITERS}),
+}
+
+
+@pytest.mark.parametrize("case", list(GMA_TABLE))
+def test_gma_attention_table(monkeypatch, case):
+    """Which plain function computes each outcome of ``gma_attention``,
+    how often per frame pair, and that every outcome gives the attention
+    of ``attend_reference`` (the band its rows of it)."""
+    kwargs, materialise, flash, want_calls = GMA_TABLE[case]
+    h, w, d = 4, 5, 16
+    q, k, v = _t(*_qkv(7, h * w, h * w, d, d))
+    bias = torch.from_numpy(np.random.default_rng(8).normal(size=(1, h * w, h * w)).astype(np.float32))
+    bias = bias if kwargs.get("bias") else None
+    want = att.attend_reference(q, k, v, 1.0, bias)
+    monkeypatch.setattr(att, "_MATERIALIZE_MAX_TOKENS", materialise)
+    monkeypatch.setattr(att, "_FLASH_MIN_TOKENS", flash)
+    calls = {}
+    for name in ("attention_probs_spatial_plain", "attention_probs_biased", "apply_attention_probs",
+                 "attend_reference", "flash_attend_plain"):
+        def counted(*args, _fn=getattr(att, name), _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(att, name, counted)
+    rows = slice(0, h)
+    extra = {"use_pallas": kwargs.get("use_pallas")}
+    if kwargs.get("band"):  # rank 1 of a two-rank model axis
+        monkeypatch.setattr(att, "group_size", lambda group: 2)
+        monkeypatch.setattr(att, "group_rank", lambda group: 1)
+        rows = slice(2, 4)
+        extra.update(band=(2, 4), mesh=types.SimpleNamespace(group=lambda axis: axis))
+    if want_calls is None:
+        with pytest.raises(ValueError, match="limit 19"):
+            att.gma_attention(q, k, bias, h, w, **extra)
+        assert calls == {}
+        return
+    attn = att.gma_attention(q, k, bias, h, w, **extra)
+    for _ in range(GMA_ITERS):
+        out = attn(v)
+    assert calls == want_calls
+    want = want.reshape(1, h, w, d)[:, rows]
+    torch.testing.assert_close(out.reshape(want.shape), want)
 
 
 @pytest.mark.parametrize("dv", [1, 2, 3, 4])

@@ -227,12 +227,13 @@ def test_raftgma_refuses_what_is_not_ported(gma, frames):
     im = torch.from_numpy(frames[0])
     with pytest.raises(ValueError):
         port(im[:, :60], im[:, :60])
-    from atdn_vslam_torch.models.flow.gma import AttentionQK
+    from atdn_vslam_torch.ops.attention import gma_attention
 
     # the positional modes are ported; like the JAX package they refuse
-    # to materialise their (N, N) bias above 8192 tokens
+    # to materialise their (N, N) bias above 8192 tokens (64 x 129 here)
+    q = torch.zeros(1, 64 * 129, 16)
     with pytest.raises(ValueError, match="8192"):
-        AttentionQK(position_only=True)(torch.zeros(1, 128, 64, 129))
+        gma_attention(q, q, None, 64, 129, position_only=True)
 
 
 def test_atdnvo_two_steps_match_jax_with_carry():
@@ -277,12 +278,11 @@ def _spy(monkeypatch, module, name, calls):
 
 
 def _attention_spies(monkeypatch):
-    import atdn_vslam_torch.models.flow.network as port_network
     import atdn_vslam_torch.ops.attention as port_attention
     import atdn_vslam_torch.ops.corr_lookup as port_corr
 
     calls = {}
-    _spy(monkeypatch, port_network, "attention_probs_spatial", calls)
+    _spy(monkeypatch, port_attention, "attention_probs_spatial", calls)
     _spy(monkeypatch, port_attention, "attend_reference", calls)
     _spy(monkeypatch, port_attention, "flash_attend_plain", calls)
     _spy(monkeypatch, port_corr, "corr_dot_rowmajor_plain", calls)

@@ -189,13 +189,17 @@ def test_train_mode_positional_gradients_match_jax(weights, frames):
 
 
 def test_positional_refused_above_8192_tokens():
-    """64 x 129 = 8256 tokens: both packages refuse to materialise the bias."""
+    """64 x 129 = 8256 tokens: both packages refuse to materialise the bias
+    (the port where the flow net schedules its attention, on what its
+    ``AttentionQK`` returns)."""
     fmap = np.zeros((1, 64, 129, 128), np.float32)
     for mode in MODES:
         with pytest.raises(ValueError, match="8192"):
             JAttentionQK(**{mode: True}).init(jax.random.key(0), jnp.asarray(fmap))
+        with torch.no_grad():
+            q, k, bias = AttentionQK(**{mode: True})(torch.from_numpy(fmap).permute(0, 3, 1, 2))
         with pytest.raises(ValueError, match="8192"):
-            AttentionQK(**{mode: True})(torch.from_numpy(fmap).permute(0, 3, 1, 2))
+            port_attention.gma_attention(q, k, bias, 64, 129, position_only=mode == "position_only")
 
 
 def test_pos_emb_through_convert_and_checkpoint(weights, tmp_path):
