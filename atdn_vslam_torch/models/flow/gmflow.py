@@ -106,15 +106,14 @@ class ResidualBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(in_planes, planes, 3, padding=1, stride=stride, bias=False)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.norm1, self.norm2 = InstanceNorm(), InstanceNorm()
+        self.norm1, self.norm2 = InstanceNorm(relu=True), InstanceNorm(relu=True)
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.norm3 = InstanceNorm()
             self.downsample = nn.Sequential(nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
+        y = self.norm2(self.conv2(self.norm1(self.conv1(x))))
         if self.downsample is not None:
             x = self.downsample(x)
         return F.relu(x + y)
@@ -127,7 +126,7 @@ class CNNEncoder(nn.Module):
     def __init__(self, output_dim: int = 128):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.norm1 = InstanceNorm()
+        self.norm1 = InstanceNorm(relu=True)
         layers, cin = [], 64
         for planes, stride in ((64, 1), (96, 2), (128, 2)):
             layers.append(nn.Sequential(ResidualBlock(cin, planes, stride), ResidualBlock(planes, planes, 1)))
@@ -136,7 +135,7 @@ class CNNEncoder(nn.Module):
         self.conv2 = nn.Conv2d(128, output_dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.norm1(self.conv1(x)))
+        x = self.norm1(self.conv1(x))
         return self.conv2(self.layer3(self.layer2(self.layer1(x))))
 
 

@@ -93,6 +93,12 @@ _SIGNATURES = {
         # out_bf16, blocks (out), device
         "atdn_corr_dot_tiled_occupancy": (_I, _IP, _I),
     },
+    "instance_norm": {
+        # x, y, parts, planes, n, k, two_pass, is_bf16, relu, eps, device, stream
+        "atdn_instance_norm": (_P,) * 3 + (_L,) * 2 + (_I,) * 4 + (_F, _I, _P),
+        # is_bf16, two_pass, n, k, blocks (out), device
+        "atdn_instance_norm_occupancy": (_I, _I, _L, _I, _IP, _I),
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -191,7 +197,8 @@ def blocks_per_sm(name: str, device: torch.device, *args: int) -> int:
     bf16-input kernel; for ``attention_probs`` (pass, d) of the bf16
     kernels; for ``corr_lookup``, ``corr_lookup_slab`` and
     ``corr_lookup_nlanes`` (is_bf16,), the last for its three-level
-    block."""
+    block; for ``instance_norm`` (is_bf16, two_pass, n, k), the clustered
+    kernel's with its slice of a plane of n elements in k blocks."""
     blocks = ctypes.c_int(0)
     fn = getattr(library(name), f"atdn_{name}_occupancy")
     check(fn(*args, ctypes.byref(blocks), device.index or 0), f"{name} occupancy")

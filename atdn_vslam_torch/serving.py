@@ -47,7 +47,7 @@ from torch import nn
 from torch.func import functional_call
 
 # registers the eight kernels as atdn:: ops, which a loaded graph calls
-from atdn_vslam_torch.ops import attention, corr_dot_tiled, corr_lookup, corr_lookup_nlanes, corr_lookup_slab  # noqa: F401
+from atdn_vslam_torch.ops import attention, corr_dot_tiled, corr_lookup, corr_lookup_nlanes, corr_lookup_slab, norm  # noqa: F401
 from atdn_vslam_torch.geometry.se3 import pose_to_matrix
 from atdn_vslam_torch.utils.helpers import full_float32
 

@@ -19,7 +19,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      K2, K5, K4, K3, K2n, K2s, K3t, K5r) with the registers and spills that
      ptxas reported, and K1, K2, K3, K2n, K2s and K3t with their blocks
      per SM (K1 also its key split, and in the kernels line the device
-     time of each pass, profiled after the last phase);
+     time of each pass, profiled after the last phase); K6 on the 15
+     instance norms of GMA's feature encoder at KITTI and at Cityscapes
+     (its cluster per shape, its two-pass form, the chain it replaces);
+     every phase that runs a flow encoder counts K6's 15 launches a pass;
   4. agreement: the streaming runtime on the GPU (float32, kernels) and
      on the CPU (float32, plain versions) give the same poses on a
      small input, and ``RAFTGMA(use_pallas=True)`` (K3, K5) the same
@@ -186,6 +189,12 @@ K3_TOL = {"rtol": 2.0**-7, "atol": 1e-5}  # both round one float32 sum: one bf16
 # K2n: the same two-term float32 sums and bf16 roundings on both sides
 K2N_TOL = {"rtol": 1e-5, "atol": 1e-5}
 K2S_TOL = {"rtol": 1e-5, "atol": 1e-5}  # both contract the same bf16 taps in float32
+# K6: both round the same float32 normalisation to bf16; only the order of
+# the moments' float32 sums differs: one bf16 ulp
+K6_TOL = {"rtol": 2.0**-7, "atol": 1e-5}
+#: K6's launches in one pass of a flow encoder (GMA's fnet, GMFlow's
+#: backbone; one call whatever its batch): the stem and 14 in the blocks
+ENCODER_NORMS = 15
 # K4: bf16 out of float32 sums taken in another order: one bf16 ulp
 K4_TOL = {"rtol": 2.0**-7, "atol": 1e-5}
 K4_GRAD_TOL = {"rtol": 1e-5, "atol": 1e-5}  # the same float32 products on both sides
@@ -669,6 +678,108 @@ def k5_narrow(device, hw8=(48, 154), d=128, seed=27) -> dict:
     }
 
 
+def encoder_norm_inputs(device, hw, seed: int) -> list:
+    """The inputs of GMA's feature encoder's 15 instance norms on one
+    frame at ``hw`` (bf16, PyTorch's default initialisation from
+    ``seed``), in call order, each with its ``relu``."""
+    from atdn_vslam_torch.models.flow.extractor import BasicEncoder, InstanceNorm
+
+    torch.manual_seed(seed)
+    enc = BasicEncoder(256, "instance").to(device, torch.bfloat16)
+    calls = []
+    for m in enc.modules():
+        if isinstance(m, InstanceNorm):
+            m.register_forward_pre_hook(lambda mod, args: calls.append((args[0].clone(), mod.relu)))
+    g = torch.Generator(device=device).manual_seed(seed)
+    im = (torch.rand((1, 3, *hw), generator=g, device=device) * 2 - 1).to(torch.bfloat16)
+    with torch.inference_mode():
+        enc(im)
+    return calls
+
+
+def k6_instance_norm(device, sizes=(("kitti", FULL_HW), ("cityscapes", (1024, 2048))), seed=28) -> dict:
+    """K6 on the 15 calls of the feature encoder's norms on one frame, at
+    KITTI (376x1232) and at Cityscapes (1024x2048): each input contiguous,
+    each call against the plain version (``K6_TOL``) and the same bits
+    twice; the time of the 15 calls, in the wrapper's form and forced
+    two-pass at the same slices, the plain version's, and the chain K6
+    replaces (a float32 copy, ``F.instance_norm``, the cast back,
+    ``F.relu``: the library yardstick); the bound moves each element's 2
+    bytes in and 2 out once. The cluster each shape takes
+    (``ops/norm.py`` ``_plan``) and its blocks per SM."""
+    from atdn_vslam_torch.ops import _kernels
+    from atdn_vslam_torch.ops.norm import _plan, instance_norm, instance_norm_plain, launch
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count if device.type == "cuda" else 132
+
+    def plan(x):
+        return _plan(x.shape[0] * x.shape[1], x.shape[2] * x.shape[3], x.element_size(), sms)
+
+    def two_pass(x, relu):
+        if x.device.type != "cuda":  # a rehearsal on the CPU
+            return instance_norm_plain(x, relu)
+        return launch(x, relu, 1e-5, plan(x)[0], True)
+
+    def chain(x, relu):
+        y = F.instance_norm(x.float(), eps=1e-5).to(x.dtype)
+        return F.relu(y) if relu else y
+
+    out = {
+        "name": "instance_norm", "route": "cuda", "source": "atdn_vslam_torch/csrc/instance_norm.cu",
+        "replaces": "a float32 copy, F.instance_norm (batch-norm statistics and transform kernels), the cast "
+                    "back and F.relu: the JAX package's instance_norm is left to XLA",
+        "design": "a cluster of k blocks a plane (k from the shape, at most 16), each reading its slice once "
+                  "into shared memory 16 bytes a thread, two-pass float32 moments of the resident slice, "
+                  "(count, mean, M2) swapped through distributed shared memory and merged in rank order, "
+                  "the slice normalised (and ReLU'd) from shared memory, 16-byte stores",
+        "ptxas": check_ptxas("instance_norm", {
+            f"{form}_{t}": ptxas_report("instance_norm", f"instance_norm_kernelI{mangled}Li{mode}E")
+            for t, mangled in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
+            for form, mode in (("cluster", 0), ("partials", 1), ("finish", 2))
+        }),
+    }
+    for label, hw in sizes:
+        calls = encoder_norm_inputs(device, hw, seed)
+        if len(calls) != ENCODER_NORMS or not all(x.is_contiguous() for x, _ in calls):
+            raise AssertionError(f"instance_norm: {len(calls)} encoder norms at {hw}, not all contiguous")
+        err = 0.0
+        with torch.inference_mode():
+            for x, relu in calls:
+                got = instance_norm(x, relu)
+                if not torch.equal(got, instance_norm(x, relu)):
+                    raise AssertionError(f"instance_norm: two calls at {tuple(x.shape)} differ")
+                err = max(err, check_close(f"instance_norm {tuple(x.shape)}", got, instance_norm_plain(x, relu),
+                                           **K6_TOL))
+        shapes = {tuple(x.shape): x for x, _ in calls}
+        blocks = {}
+        for shape, x in shapes.items():
+            k, two = plan(x)
+            blocks[str(shape)] = {"k": k, "two_pass": two, "blocks_per_sm": (
+                _kernels.blocks_per_sm("instance_norm", device, 1, int(two), shape[2] * shape[3], k)
+                if device.type == "cuda" else None)}
+
+        def run(fn):
+            return lambda: [fn(x, relu) for x, relu in calls]
+
+        elements = sum(x.numel() for x, _ in calls)
+        bound_ms, bound_by = bound(4.0 * elements, 0.0, torch.bfloat16)
+        with torch.inference_mode():
+            out[label] = {
+                "hw": list(hw), "calls": len(calls), "elements": elements, "max_abs_err": err, "plan": blocks,
+                "ms": time_ms(run(instance_norm), device), "two_pass_ms": time_ms(run(two_pass), device),
+                "plain_ms": time_ms(run(instance_norm_plain), device, reps=5),
+                # the yardstick only, the port never calls it on this path
+                "library_ms": time_ms(run(chain), device),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+        del calls, shapes
+    kitti = out[sizes[0][0]]
+    out.update({key: kitti[key] for key in ("ms", "two_pass_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                             "max_abs_err")})
+    out["tolerance"] = K6_TOL
+    return out
+
+
 def k5r_flash_attend_regions(device, hw8=(48, 154), d=128, seed=25) -> dict:
     """K5r at GMFlow's KITTI shape: both frames' 2 x 2 windows (8) of
     24 x 77 = 1,848 tokens (14 key tiles and a ragged one), 128 wide, with
@@ -1148,13 +1259,14 @@ def _counters() -> dict:
     from atdn_vslam_torch.ops.corr_lookup import corr_dot_rowmajor, lookup_corr_pyramid
     from atdn_vslam_torch.ops.corr_lookup_nlanes import nlanes_lookup_levels
     from atdn_vslam_torch.ops.corr_lookup_slab import lookup_corr_pyramid_slab
+    from atdn_vslam_torch.ops.norm import instance_norm
 
     return {
         "attention_probs": attention_probs_spatial, "corr_lookup": lookup_corr_pyramid,
         "corr_dot": corr_dot_rowmajor, "flash_attend": flash_attend,
         "corr_lookup_nlanes": nlanes_lookup_levels, "apply_probs": flash_apply_probs,
         "corr_lookup_slab": lookup_corr_pyramid_slab, "corr_dot_tiled": corr_dot_tiled,
-        "flash_attend_regions": flash_attend_regions,
+        "flash_attend_regions": flash_attend_regions, "instance_norm": instance_norm,
     }
 
 
@@ -1205,9 +1317,11 @@ def agreement(device, keyframes_path: str, hw=(96, 192), iters=2, frames=4) -> d
     out = {"hw": list(hw), "iters": iters, "frames": frames, "max_abs_pose_diff": err, "tol": tol}
     variants = {
         "use_pallas_true": ({"use_pallas": True},
-                            launches_of(corr_lookup=iters, corr_dot=4, flash_attend=iters)),
+                            launches_of(corr_lookup=iters, corr_dot=4, flash_attend=iters,
+                                        instance_norm=ENCODER_NORMS)),
         "corr_nlanes": ({"corr_nlanes": True},
-                        launches_of(attention_probs=1, corr_lookup=iters, corr_lookup_nlanes=iters)),
+                        launches_of(attention_probs=1, corr_lookup=iters, corr_lookup_nlanes=iters,
+                                    instance_norm=ENCODER_NORMS)),
     }
     for name, (switch, want) in variants.items():
         flows, launches = {}, None
@@ -1237,7 +1351,7 @@ def agreement(device, keyframes_path: str, hw=(96, 192), iters=2, frames=4) -> d
     for name, switch, want in (
         ("bf16_default", {}, None),
         ("bf16_use_pallas_true", {"use_pallas": True},
-         launches_of(corr_lookup=iters, corr_dot=4, flash_attend=iters)),
+         launches_of(corr_lookup=iters, corr_dot=4, flash_attend=iters, instance_norm=ENCODER_NORMS)),
     ):
         flows = {}
         for c in (cfg, bf16_cfg):
@@ -1262,14 +1376,16 @@ def agreement(device, keyframes_path: str, hw=(96, 192), iters=2, frames=4) -> d
     return out
 
 
-def expected_launches(hw, iters: int, pairs: int) -> dict:
+def expected_launches(hw, iters: int, pairs: int, encodes: int) -> dict:
     """The default path's launches: K2 every iteration; K1 once per pair
-    up to 8192 tokens, K5 every iteration from 16384 on; no K3."""
+    up to 8192 tokens, K5 every iteration from 16384 on; no K3; K6 15
+    times in each of ``encodes`` feature-encoder passes."""
     n = (hw[0] // 8) * (hw[1] // 8)
     return launches_of(
         attention_probs=pairs if n <= 8192 else 0,
         corr_lookup=iters * pairs,
         flash_attend=iters * pairs if n >= 16384 else 0,
+        instance_norm=ENCODER_NORMS * encodes,
     )
 
 
@@ -1288,7 +1404,7 @@ def stream_slice(
     pairs = frames - 1
     if poses.shape != (frames, 4, 4) or not np.isfinite(poses).all():
         raise AssertionError("slice: poses are not finite 4x4 matrices")
-    want = expected_launches(hw, iters, pairs)
+    want = expected_launches(hw, iters, pairs, encodes=frames)  # the first frame's encode, then one a pair
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"slice {hw}: launches {launches} for {pairs} frame pairs, not {want}")
     steady = times[min(3, frames - 1):]  # the first pairs include cuDNN's autotuning
@@ -1335,7 +1451,7 @@ def gmflow_stream(device, keyframes_path: str, hw=FULL_HW, frames=12, seed=26) -
     pairs = frames - 1
     if poses.shape != (frames, 4, 4) or not np.isfinite(poses).all():
         raise AssertionError("gmflow_stream: poses are not finite 4x4 matrices")
-    want = launches_of(flash_attend=8 * pairs, flash_attend_regions=6 * pairs)
+    want = launches_of(flash_attend=8 * pairs, flash_attend_regions=6 * pairs, instance_norm=ENCODER_NORMS * frames)
     if device.type == "cuda" and (launches != want or narrow != 2 * pairs):
         raise AssertionError(f"gmflow_stream: launches {launches}, {narrow} of K5's narrow kernel, for {pairs} "
                              f"frame pairs, not {want} and {2 * pairs}")
@@ -1379,7 +1495,8 @@ def forced_streaming(device, hw=HW_2X, iters=12, pairs=5) -> dict:
                 times[use_pallas].append((time.perf_counter() - t0) * 1e3)
             if use_pallas:
                 launches = read_launches()
-    want = launches_of(corr_lookup=iters * pairs, corr_dot=4 * pairs, flash_attend=iters * pairs)
+    want = launches_of(corr_lookup=iters * pairs, corr_dot=4 * pairs, flash_attend=iters * pairs,
+                       instance_norm=ENCODER_NORMS * pairs)
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"forced_streaming: launches {launches} for {pairs} pairs, not {want}")
     diff = max(float((a - b).abs().max()) for a, b in zip(flows[True], flows[None]))
@@ -1440,8 +1557,8 @@ def nlanes(device, hw=FULL_HW, iters=12, pairs=6, profile: int = 0) -> dict:
                 profiles[corr_nlanes] = profile_frames(step, range(pairs, pairs + profile))
     want = {
         True: launches_of(attention_probs=pairs, corr_lookup=iters * pairs,
-                          corr_lookup_nlanes=iters * pairs),
-        False: expected_launches(hw, iters, pairs),
+                          corr_lookup_nlanes=iters * pairs, instance_norm=ENCODER_NORMS * pairs),
+        False: expected_launches(hw, iters, pairs, encodes=pairs),
     }
     for corr_nlanes, (_, _, launches) in runs.items():
         if device.type == "cuda" and launches != want[corr_nlanes]:
@@ -1666,7 +1783,9 @@ def mapping(device, keyframes_path: str, hw=FULL_HW, iters=12, keyframes=32, epo
             answers.setdefault(q, (initial, refined, dist))
     query_launches = read_launches()
     n_q = 2 * len(queries)
-    want = launches_of(attention_probs=n_q, corr_lookup=iters * n_q)
+    # a cold query encodes its keyframe (then cached) and itself, a warm one itself
+    want = launches_of(attention_probs=n_q, corr_lookup=iters * n_q,
+                       instance_norm=ENCODER_NORMS * (n_q + len(set(queries))))
     if device.type == "cuda" and query_launches != want:
         raise AssertionError(f"mapping: {n_q} queries launched {query_launches}, not {want}")
     self_dist = [float(answers[q][2][q]) for q in queries]
@@ -1773,7 +1892,7 @@ def loop_closure(device, keyframes_path: str, hw=FULL_HW, iters=12, out=12, epoc
         raise AssertionError(f"loop_closure: no pixel-identical revisit among the pairs {pairs}")
 
     measured, times = {}, {"cold": [], "warm": []}
-    per_measure = []
+    per_measure, wants, cached = [], [], set()
     for kind in ("cold", "warm"):
         for i, j, _ in pairs:
             reset_launches()
@@ -1782,12 +1901,15 @@ def loop_closure(device, keyframes_path: str, hw=FULL_HW, iters=12, out=12, epoc
             t = rt.measure_closure(i, j)
             times[kind].append((time.perf_counter() - t0) * 1e3)  # the host copy waits
             per_measure.append(read_launches())
+            # K6 encodes frame j, and keyframe i the first time i is measured
+            wants.append(launches_of(attention_probs=1, corr_lookup=iters,
+                                     instance_norm=ENCODER_NORMS * (1 + (i not in cached))))
+            cached.add(i)
             measured.setdefault((i, j), t)
             if not np.isfinite(t).all():
                 raise AssertionError(f"loop_closure: measurement ({i}, {j}) is not finite")
-    want = launches_of(attention_probs=1, corr_lookup=iters)
-    if device.type == "cuda" and any(c != want for c in per_measure):
-        raise AssertionError(f"loop_closure: a measurement launched {per_measure}, not {want} each")
+    if device.type == "cuda" and per_measure != wants:
+        raise AssertionError(f"loop_closure: the measurements launched {per_measure}, not {wants}")
 
     before = rt.keyframes.poses[:n].copy()
     reset_launches()
@@ -1800,7 +1922,8 @@ def loop_closure(device, keyframes_path: str, hw=FULL_HW, iters=12, out=12, epoc
         raise AssertionError("loop_closure: close_loops found no closure or gave non-finite poses")
     refined, mse = result
     n_closures = len(pairs)  # the gate is off: every pair is an edge
-    want = launches_of(attention_probs=n_closures, corr_lookup=iters * n_closures)
+    want = launches_of(attention_probs=n_closures, corr_lookup=iters * n_closures,
+                       instance_norm=ENCODER_NORMS * n_closures)
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"loop_closure: close_loops launched {launches}, not {want}")
 
@@ -2424,6 +2547,7 @@ sys.path.insert(0, sys.argv[1])
 from atdn_vslam_torch import serving
 from atdn_vslam_torch.ops.attention import attention_probs_spatial
 from atdn_vslam_torch.ops.corr_lookup import lookup_corr_pyramid
+from atdn_vslam_torch.ops.norm import instance_norm
 work, device = sys.argv[2], torch.device(sys.argv[3])
 sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 t0 = time.perf_counter()
@@ -2436,7 +2560,7 @@ fmap = encoder.call(frames[0])
 carry = serving.zero_inputs_like(step.exported, 3)
 pose = torch.eye(4, device=device)
 poses, flows, times = [], [], []
-attention_probs_spatial.launches = lookup_corr_pyramid.launches = 0
+attention_probs_spatial.launches = lookup_corr_pyramid.launches = instance_norm.launches = 0
 for im1, im2 in zip(frames[:-1], frames[1:]):
     sync()
     t1 = time.perf_counter()
@@ -2450,7 +2574,8 @@ for im1, im2 in zip(frames[:-1], frames[1:]):
 torch.save({"poses": torch.stack(poses), "flows": torch.stack(flows)}, work + "/served.pt")
 print(json.dumps({
     "models_imported": any(m.startswith("atdn_vslam_torch.models") for m in sys.modules),
-    "launches": {"attention_probs": attention_probs_spatial.launches, "corr_lookup": lookup_corr_pyramid.launches},
+    "launches": {"attention_probs": attention_probs_spatial.launches, "corr_lookup": lookup_corr_pyramid.launches,
+                 "instance_norm": instance_norm.launches},
     "load_s": load_s, "load_to_first_pose_s": first_pose_s, "frame_ms": times,
 }))
 """
@@ -2593,7 +2718,7 @@ def serving_phase(device, work: str, hw=FULL_HW, iters=12, frames=17, small_hw=(
     pairs = frames - 1
     if served_info["models_imported"]:
         raise AssertionError("serving: the serving process imported atdn_vslam_torch.models")
-    want = {"attention_probs": pairs, "corr_lookup": iters * pairs}
+    want = {"attention_probs": pairs, "corr_lookup": iters * pairs, "instance_norm": ENCODER_NORMS * pairs}
     if device.type == "cuda" and served_info["launches"] != want:
         raise AssertionError(f"serving: the artifact launched {served_info['launches']}, not {want}")
     flow_diff = float((served["flows"] - flows).abs().max())
@@ -2642,12 +2767,14 @@ def serving_phase(device, work: str, hw=FULL_HW, iters=12, frames=17, small_hw=(
                     lambda i, fn=fn: fn(ims[i], ims[i + 1], fmap, carry, pose), range(profile)
                 )
 
-    # the kernels of the other builds, float32 at small_hw
+    # the kernels of the other builds, float32 at small_hw, over 4 frames:
+    # K6 in the first frame's eager encode and the 3 pairs' artifact
+    norms = ENCODER_NORMS * 4 / 3
     builds = {
         "use_pallas_true": ({"use_pallas": True}, {"corr_dot": 4, "flash_attend": small_iters,
-                                                   "corr_lookup": small_iters}),
+                                                   "corr_lookup": small_iters, "instance_norm": norms}),
         "corr_nlanes": ({"corr_nlanes": True}, {"attention_probs": 1, "corr_lookup": small_iters,
-                                                "corr_lookup_nlanes": small_iters}),
+                                                "corr_lookup_nlanes": small_iters, "instance_norm": norms}),
     }
     for name, (switch, per_frame) in builds.items():
         res, _ = _served_build(device, work, name, small_hw, small_iters, switch, frames=4)
@@ -2738,7 +2865,7 @@ def positional(device, small_hw=(96, 192), small_iters=2, hw=FULL_HW, iters=12, 
                 flows[dev.type] = [f.cpu() for f in model(im1, im2)]
             if dev.type == "cuda":
                 launches = read_launches()
-        want = launches_of(corr_lookup=small_iters)
+        want = launches_of(corr_lookup=small_iters, instance_norm=ENCODER_NORMS)
         if device.type == "cuda" and launches != want:
             raise AssertionError(f"positional: {mode} launched {launches}, not {want}")
         diff = max(float((a - b).abs().max()) for a, b in zip(flows[device.type], flows["cpu"]))
@@ -2775,7 +2902,7 @@ def positional(device, small_hw=(96, 192), small_iters=2, hw=FULL_HW, iters=12, 
         del model
     flows, times, launches, peak = runs[(torch.bfloat16, "position_and_content")]
     f32 = runs[(torch.float32, "position_and_content")]
-    want = launches_of(corr_lookup=iters * pairs)
+    want = launches_of(corr_lookup=iters * pairs, instance_norm=ENCODER_NORMS * pairs)
     if device.type == "cuda" and launches != want:
         raise AssertionError(f"positional: the KITTI build launched {launches} for {pairs} pairs, not {want}")
     diff = max(float((a - b).abs().max()) for a, b in zip(flows, f32[0]))
@@ -3301,8 +3428,9 @@ def parallel_phase(device, work: str) -> dict:
 
     one_rank = torch.load(os.path.join(work, "nccl_rank0.pt"))  # the same code, one process
     gloo_t = [out["tensors"] for out in gloo]
-    want = launches_of(attention_probs=PAR_PAIRS, corr_lookup=12 * PAR_PAIRS)
-    want2x = launches_of(flash_attend=12 * PAR_PAIRS, corr_lookup=12 * PAR_PAIRS)
+    want = launches_of(attention_probs=PAR_PAIRS, corr_lookup=12 * PAR_PAIRS, instance_norm=ENCODER_NORMS * PAR_PAIRS)
+    want2x = launches_of(flash_attend=12 * PAR_PAIRS, corr_lookup=12 * PAR_PAIRS,
+                         instance_norm=ENCODER_NORMS * PAR_PAIRS)
     for out in gloo + nccl:
         key = f"{out['backend']}_rank{out['rank']}"
         t = out.pop("tensors")
@@ -3429,6 +3557,8 @@ def main(argv=None) -> int:
     kernels = [k1_attention_probs(device), k2_corr_lookup(device)]
     kernels += [k5_flash_attend(device), k3_corr_dot(device), k5r_flash_attend_regions(device), k5_narrow(device)]
     torch.cuda.empty_cache()
+    kernels += [k6_instance_norm(device)]
+    torch.cuda.empty_cache()
     kernels += [k2n_nlanes(device), k4_apply_probs(device), k2s_slab(device), k3t_corr_dot_tiled(device)]
     torch.cuda.empty_cache()
     for k in kernels:
@@ -3489,7 +3619,7 @@ def main(argv=None) -> int:
               "flash_attend": "slice_2x", "corr_dot": "forced_streaming",
               "corr_lookup_nlanes": "nlanes", "apply_probs": "entry_points",
               "corr_lookup_slab": "entry_points", "corr_dot_tiled": "entry_points",
-              "flash_attend_regions": "gmflow_stream"}
+              "flash_attend_regions": "gmflow_stream", "instance_norm": "slice"}
     for k in kernels:
         if k["name"] == "flash_attend_narrow":  # counted apart from K5's launches
             k["launches_from"] = "gmflow_stream"
@@ -3497,9 +3627,9 @@ def main(argv=None) -> int:
             continue
         k["launches_from"] = driver[k["name"]]
         k["launches"] = results[driver[k["name"]]]["launches"][k["name"]]
-        if k["name"] == "flash_attend":  # GMFlow's path drives it too
-            k["launches_gmflow_stream"] = results["gmflow_stream"]["launches"]["flash_attend"]
-        if k["name"] in ("attention_probs", "corr_lookup"):  # the other paths that drive them
+        if k["name"] in ("flash_attend", "instance_norm"):  # GMFlow's path drives them too
+            k["launches_gmflow_stream"] = results["gmflow_stream"]["launches"][k["name"]]
+        if k["name"] in ("attention_probs", "corr_lookup", "instance_norm"):  # the other paths that drive them
             k["launches_loop_closure"] = results["loop_closure"]["launches"][k["name"]]
             k["launches_flow_train"] = results["flow_train"]["launches"][k["name"]]
     # the serving path's launches: K1 and K2 from the KITTI artifact's
@@ -3521,6 +3651,7 @@ def main(argv=None) -> int:
     # each rank's launches in the parallel phase's gloo runs (PAR_PAIRS pairs)
     par = results["parallel"]["gloo"]
     par_launches = {"attention_probs": ("kitti_bf16", "attention_probs"), "corr_lookup": ("kitti_bf16", "corr_lookup"),
+                    "instance_norm": ("kitti_bf16", "instance_norm"),
                     "flash_attend": ("2x_bf16", "flash_attend"), "apply_probs": ("apply_probs", "apply_probs")}
     for k in kernels:
         if k["name"] in par_launches:
@@ -3542,7 +3673,7 @@ def main(argv=None) -> int:
               "backward_ms", "backward_bound_ms",
               "backward_bound_by", "design", "ptxas", "blocks_per_sm", "splits", "pass_ms", "ms_2x", "bound_ms_2x",
               "max_abs_err_2x", "padded_ms", "max_rel_err_float64", "plain_max_rel_err_float64",
-              "softmax_max_rel_err_float64", "padded_max_rel_err_float64")
+              "softmax_max_rel_err_float64", "padded_max_rel_err_float64", "two_pass_ms", "kitti", "cityscapes")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extras if key in k}
                                   for k in kernels]}))
     print(card)

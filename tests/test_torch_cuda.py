@@ -6,6 +6,8 @@ JAX test conftest is left out):
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -349,3 +351,153 @@ def test_raftgma_refuses_use_pallas_false_on_cuda(cuda):
     with pytest.raises(ValueError, match="use_pallas=False"):
         with torch.no_grad():
             model(im, im)
+
+
+# --- K6, the encoders' instance norm with its ReLU (ops/norm.py) --------
+
+NORM_TOL = {torch.bfloat16: {"rtol": 2.0**-7, "atol": 1e-5}, torch.float32: {"rtol": 1e-5, "atol": 1e-5}}
+
+
+def _conv_like(shape, device, seed):
+    """A convolution output's look: per channel an offset and a scale."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    scale = torch.rand((1, c, 1, 1), generator=g, device=device) * 2.5 + 0.5
+    offset = torch.randn((1, c, 1, 1), generator=g, device=device) * 2
+    return torch.randn(shape, generator=g, device=device) * scale + offset
+
+
+def _kitti_norm_inputs(cuda):
+    """The 15 inputs of GMA's feature encoder's instance norms on one
+    376x1232 frame, bf16, with each norm's ``relu``."""
+    from atdn_vslam_torch.models.flow.extractor import BasicEncoder, InstanceNorm
+
+    torch.manual_seed(0)
+    enc = BasicEncoder(256, "instance").to(cuda, torch.bfloat16)
+    seen = []
+    for m in enc.modules():
+        if isinstance(m, InstanceNorm):
+            m.register_forward_pre_hook(lambda mod, args: seen.append((args[0].clone(), mod.relu)))
+    im = _conv_like((1, 3, 376, 1232), cuda, 1).to(torch.bfloat16)
+    with torch.inference_mode():
+        enc(im)
+    return seen
+
+
+def test_instance_norm_kernel_at_the_kitti_encoder_calls(cuda):
+    """K6 against its plain version on the 15 calls of a KITTI frame's
+    feature encoder (1/2, 1/4, 1/8; 13 with the ReLU), bf16 and the same
+    inputs in float32, within one bf16 ulp (rtol 2^-7) and float32's
+    1e-5; every input is contiguous; a launch each."""
+    from atdn_vslam_torch.ops import norm
+
+    calls = _kitti_norm_inputs(cuda)
+    assert len(calls) == 15 and sum(relu for _, relu in calls) == 13
+    assert {tuple(x.shape[1:]) for x, _ in calls} == {(64, 188, 616), (96, 94, 308), (128, 47, 154)}
+    for x, relu in calls:
+        assert x.is_contiguous()
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(dtype)
+            before = norm.instance_norm.launches
+            with torch.inference_mode():
+                got = norm.instance_norm(xd, relu)
+            assert norm.instance_norm.launches == before + 1 and got.dtype == dtype
+            torch.testing.assert_close(got.float(), norm.instance_norm_plain(xd, relu).float(), **NORM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(1, 64, 512, 1024), (1, 96, 256, 512), (1, 128, 128, 256),
+                                   (1, 64, 192, 616), (2, 3, 7, 9), (3, 5, 1, 13), (1, 1, 300, 301)])
+def test_instance_norm_kernel(cuda, shape, dtype):
+    """Cityscapes' 1/2-1/8 planes, GMFlow's padded KITTI 1/2, ragged
+    small planes (unaligned starts, planes shorter than a vector): against
+    the plain version with and without the ReLU, the same bits twice."""
+    from atdn_vslam_torch.ops import norm
+
+    x = _conv_like(shape, cuda, 2).to(dtype)
+    for relu in (True, False):
+        got = norm.instance_norm(x, relu)
+        torch.testing.assert_close(got.float(), norm.instance_norm_plain(x, relu).float(), **NORM_TOL[dtype])
+        assert torch.equal(got, norm.instance_norm(x, relu))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(1, 128, 47, 154), (2, 3, 7, 9), (1, 4, 64, 100)])
+def test_instance_norm_every_cluster_and_the_two_pass_form(cuda, shape, dtype):
+    """Each cluster size 1-16 (9-16 non-portable) against the plain
+    version; the two-pass form, forced, gives the clustered form's bits at
+    the same slices (the same sums in the same order), and takes more
+    slices than a cluster can."""
+    from atdn_vslam_torch.ops import norm
+
+    x = _conv_like(shape, cuda, 3).to(dtype)
+    want = norm.instance_norm_plain(x, True).float()
+    for k in range(1, 17):
+        got = norm.launch(x, True, 1e-5, k, False)
+        torch.testing.assert_close(got.float(), want, **NORM_TOL[dtype])
+        assert torch.equal(got, norm.launch(x, True, 1e-5, k, True)), k
+    for k in (37, 256):
+        torch.testing.assert_close(norm.launch(x, True, 1e-5, k, True).float(), want, **NORM_TOL[dtype])
+
+
+def test_instance_norm_kernel_rejects_what_it_does_not_take(cuda):
+    from atdn_vslam_torch.ops import norm
+
+    with pytest.raises(TypeError):
+        norm.instance_norm(torch.zeros((1, 2, 3, 4), device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        norm.instance_norm(torch.zeros((2, 3, 4), device=cuda))
+    with pytest.raises(RuntimeError, match="no backward"):
+        norm.instance_norm(torch.zeros((1, 2, 3, 4), device=cuda, requires_grad=True))
+
+
+@pytest.mark.parametrize("arch", ["gma", "gmflow"])
+def test_instance_norm_launches_over_a_stream_frame(cuda, arch):
+    """15 launches a frame, bf16 at 96x192: a keyframe's ``encode_only``,
+    a streamed frame (the cached feature map), a cold pair (both frames
+    in one batch)."""
+    from atdn_vslam_torch.config import Config, FlowNetConfig
+    from atdn_vslam_torch.models.factory import build_flow_model, init_params
+    from atdn_vslam_torch.ops import norm
+
+    cfg = Config(flow=FlowNetConfig(arch=arch, iters=2, mixed_precision=True))
+    model = init_params(build_flow_model(cfg, "cpu"), 4)
+    flow = build_flow_model(cfg, cuda)
+    flow.load_state_dict(model.state_dict())
+    im1, im2 = (_conv_like((1, 96, 192, 3), cuda, s).clamp(-3, 3) * 40 + 128 for s in (5, 6))
+    with torch.inference_mode():
+        before = norm.instance_norm.launches
+        fmap = flow(im1, encode_only=True)
+        assert norm.instance_norm.launches == before + 15
+        flow(im1, im2, fmap1=fmap, return_features=True)
+        assert norm.instance_norm.launches == before + 30
+        flow(im1, im2)
+        assert norm.instance_norm.launches == before + 45
+
+
+def test_instance_norm_never_launches_in_training(cuda):
+    """A GMA training step (bf16 autocast; autograd records the encoders)
+    and an ATDNVO training step launch no K6."""
+    from atdn_vslam_torch.config import Config, FlowNetConfig, LossConfig, TrainConfig
+    from atdn_vslam_torch.models.factory import build_flow_train_model, init_params
+    from atdn_vslam_torch.models.odometry import ATDNVO
+    from atdn_vslam_torch.ops import norm
+    from atdn_vslam_torch.training import flow as flow_train
+    from atdn_vslam_torch.training import odometry as odo_train
+
+    before = norm.instance_norm.launches
+    model = init_params(build_flow_train_model(Config(flow=FlowNetConfig(iters=2)), cuda), 5)
+    state = flow_train.init_state(model, 1e-4, 20, seed=None)
+    im1, im2 = (_conv_like((2, 64, 96, 3), cuda, s).clamp(-3, 3) * 40 + 128 for s in (7, 8))
+    flow = torch.zeros((2, 64, 96, 2), device=cuda)
+    _, m = flow_train.train_step(state, im1, im2, flow, torch.ones((2, 64, 96), device=cuda))
+    assert math.isfinite(float(m["loss"]))
+    hw = (72, 96)
+    odo = init_params(ATDNVO(hw), 1).to(cuda)
+    opt, sched = odo_train.make_optimizer(odo, TrainConfig(), 1)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    flows = torch.randn((2, 3, *hw, 2), generator=g, device=cuda) * 20.0
+    rot, tr = torch.randn((2, 3, 3), generator=g, device=cuda) * 0.02, torch.randn((2, 3, 3), generator=g, device=cuda)
+    metrics = odo_train.train_step(odo_train.OdometryTrainState(odo, opt, sched), flows, rot, tr, LossConfig(alpha=0.5))
+    assert math.isfinite(float(metrics["loss"]))
+    assert norm.instance_norm.launches == before

@@ -1,5 +1,5 @@
 """Every kernel of the port is a ``torch.library`` custom op under the
-namespace ``atdn``: ``torch.library.opcheck`` on each of the nine with
+namespace ``atdn``: ``torch.library.opcheck`` on each of the ten with
 CPU inputs (its schema, its fake implementation against the real one,
 and the op under AOT dispatch with dynamic shapes), and each op's CPU
 implementation equal to the kernel's plain version (the same function,
@@ -15,6 +15,7 @@ from atdn_vslam_torch.ops import corr_dot_tiled as tiled
 from atdn_vslam_torch.ops import corr_lookup as corr
 from atdn_vslam_torch.ops import corr_lookup_nlanes as nl
 from atdn_vslam_torch.ops import corr_lookup_slab as slab
+from atdn_vslam_torch.ops import norm
 
 torch.set_num_threads(1)
 
@@ -58,6 +59,7 @@ def _cases():
         ),
         # f2 as the NHWC view of an NCHW map: any strides
         "corr_dot_tiled": ((f1t, f2_nchw.permute(0, 2, 3, 1), 0.25, torch.float32), tiled.corr_dot_tiled_plain),
+        "instance_norm": ((f2_nchw * 2.0 + 1.0, True, 1e-5), norm.instance_norm_plain),
     }
 
 
